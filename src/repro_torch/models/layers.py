@@ -1,0 +1,190 @@
+"""Building blocks of the dense decoder: norms, RoPE, GQA attention, SwiGLU
+and embeddings, ported from ``repro/models/layers.py``.
+
+Parameters live in small ``nn.Module``s whose attribute names are the JAX
+parameter tree's keys, with weights laid out ``(d_in, d_out)`` and applied
+as ``x @ w``, so weights cross between the frameworks unchanged
+(``repro_torch.interop``).  Attention goes through ``kernels.ops``: the CUDA
+kernels on the card, their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+
+__all__ = [
+    "RMSNorm", "Embed", "Attention", "MLP", "rms_norm", "embed_lookup",
+    "rope_freqs", "apply_rope", "attention_block", "attention_decode",
+    "mlp_block",
+]
+
+Offset = Union[int, torch.Tensor]
+
+
+def _param(shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.w = _param((d,), device, dtype)
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab: int, d: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.table = _param((vocab, d), device, dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
+                 qkv_bias: bool = False, qk_norm: bool = False, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.wq = _param((d_model, n_heads * head_dim), device, dtype)
+        self.wk = _param((d_model, n_kv * head_dim), device, dtype)
+        self.wv = _param((d_model, n_kv * head_dim), device, dtype)
+        self.wo = _param((n_heads * head_dim, d_model), device, dtype)
+        if qkv_bias:
+            self.bq = _param((n_heads * head_dim,), device, dtype)
+            self.bk = _param((n_kv * head_dim,), device, dtype)
+            self.bv = _param((n_kv * head_dim,), device, dtype)
+        if qk_norm:
+            self.q_norm = _param((head_dim,), device, dtype)
+            self.k_norm = _param((head_dim,), device, dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.w_gate = _param((d_model, d_ff), device, dtype)
+        self.w_up = _param((d_model, d_ff), device, dtype)
+        self.w_down = _param((d_ff, d_model), device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm over the last dim, computed in f32 and cast back."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def embed_lookup(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p.table)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (half-rotation convention)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for positions: (..., head_dim/2), f32."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd); cos/sin: (S, hd/2) or (B, S, hd/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 2:                      # (S, half) -> (1, S, 1, half)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                                   # (B, S, half) -> (B, S, 1, half)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _rope_tables(seq: int, head_dim: int, theta: float, offset: Offset,
+                 device: torch.device):
+    """A scalar offset gives (S, half) tables; a per-slot (B, 1) offset
+    gives (B, S, half)."""
+    pos = torch.arange(seq, device=device) + offset
+    return rope_freqs(head_dim, theta, pos)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _project_qkv(p: Attention, x: torch.Tensor, n_heads: int, n_kv: int,
+                 head_dim: int, theta: float, eps: float, pos_offset: Offset = 0):
+    """Bias (qwen2), reshape to heads, per-head qk norm (qwen3), RoPE."""
+    B, S, _ = x.shape
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if hasattr(p, "bq"):
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, n_heads, head_dim)
+    k = k.reshape(B, S, n_kv, head_dim)
+    v = v.reshape(B, S, n_kv, head_dim)
+    if hasattr(p, "q_norm"):
+        q = rms_norm(p.q_norm, q, eps)
+        k = rms_norm(p.k_norm, k, eps)
+    if theta > 0:
+        cos, sin = _rope_tables(S, head_dim, theta, pos_offset, x.device)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def attention_block(p: Attention, x: torch.Tensor, *, n_heads: int, n_kv: int,
+                    head_dim: int, theta: float = 1e6, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """Full-sequence causal self-attention."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, theta, eps)
+    o = ops.attention(q, k, v, causal=True)              # (B, S, H, hd)
+    return o.reshape(B, S, n_heads * head_dim) @ p.wo
+
+
+def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, index: torch.Tensor, *, n_heads: int,
+                     n_kv: int, head_dim: int, theta: float = 1e6, eps: float = 1e-5
+                     ) -> torch.Tensor:
+    """One-token decode against a KV cache: x (B,1,D) -> out (B,1,D).
+
+    cache_k/v: (B, S_max, K, hd); index: current length, a 0-dim int tensor
+    for a lockstep batch or (B,) for continuous batching (per-slot
+    positions).  Unlike the JAX version, which returns new caches, this
+    writes the new K/V into ``cache_k``/``cache_v`` IN PLACE at ``index``
+    (saving a copy of the cache per layer per step), then attends over
+    ``index + 1`` positions.
+    """
+    B = x.shape[0]
+    per_slot = index.dim() > 0
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, theta, eps,
+                           pos_offset=index[:, None] if per_slot else index)
+    if per_slot:
+        slots = torch.arange(B, device=x.device)
+        cache_k[slots, index] = k[:, 0].to(cache_k.dtype)
+        cache_v[slots, index] = v[:, 0].to(cache_v.dtype)
+    else:
+        i = int(index)
+        cache_k[:, i:i + 1] = k.to(cache_k.dtype)
+        cache_v[:, i:i + 1] = v.to(cache_v.dtype)
+    o = ops.decode_attention(q, cache_k, cache_v, index + 1)   # (B, 1, H, hd)
+    return o.reshape(B, 1, n_heads * head_dim) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU."""
+    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
