@@ -4,23 +4,35 @@
     python3 chip_smoke.py
 
 1. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. holds each kernel against its plain PyTorch version on the card (bf16 and
-   f32, qwen3 and qwen2 head layouts, ragged lengths);
+2. holds each kernel against its plain PyTorch version on the card
+   (attention in bf16 and f32 at head dims 64, 80 and 128 with ragged
+   lengths; the MoE router with ties, ids compared exactly; the SSD state
+   scan with and without an initial state);
 3. serves qwen3-1.7b at full width and depth (random weights from a seeded
    ``torch.Generator``) through ``ServeEngine``: 12 requests, prompts of
    8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots;
 4. runs one prompt teacher-forced through the kernel path and the plain path
    and bounds the logit gap;
-5. times each kernel at the serving shapes beside its bound, its plain
-   version and one PyTorch library call, and prints the table as JSON.
+5. serves zamba2-2.7b (hybrid, full width and depth) through
+   ``make_prefill`` / ``make_serve_step``: 4 prompts of 700 tokens, 32
+   greedy steps; then its teacher-forced bound;
+6. serves qwen3-moe-30b-a3b (full width, all 48 layers, 56.9 GiB of bf16
+   weights drawn on the card) the same way: 4 prompts of 300 tokens, 16
+   greedy steps; then its teacher-forced bound at full width and 4 layers;
+7. times each kernel at the serving shapes of phases 3, 5 and 6 beside its
+   bound, its plain version and one PyTorch library call where one exists,
+   and prints the table as JSON.
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
-or without the repository's ``src/`` beside it, the script exits non-zero
-and prints no result.
+Each serving phase sets every kernel's launch count to 0 before its
+prefill and before its decode steps, and checks the counts after.  The last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the repository's ``src/`` beside it, the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -45,6 +57,26 @@ PROMPT_MIN, PROMPT_MAX = 8, 1500
 TEACHER_PROMPT, TEACHER_STEPS, TEACHER_SLACK = 300, 16, 1.5
 PROFILE_STEPS, PROFILE_PROMPT = 6, 512
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # as tests/test_kernels.py
+
+# phases 5 and 6: (arch, batch, prompt length, max_seq, greedy decode steps)
+HYBRID_RUN = ("zamba2-2.7b", 4, 700, 1024, 32)
+MOE_RUN = ("qwen3-moe-30b-a3b", 4, 300, 512, 16)
+MOE_TEACHER_LAYERS = 4      # f32 at 48 layers would need ~122 GB
+
+
+class Phase:
+    """Prints a phase's title, then its seconds when it ends."""
+
+    def __init__(self, title: str):
+        self.title = title
+
+    def __enter__(self):
+        print(self.title)
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            print(f"  phase took {time.perf_counter() - self.t0:.1f} s")
 
 
 class SmokeFailure(Exception):
@@ -85,6 +117,25 @@ def time_ms(torch, fn, flush, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernels():
+    """name -> wrapper of every kernel; each wrapper counts its launches."""
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gating import moe_gating
+    from repro_torch.kernels.ssd_scan import ssd_state_scan
+    return {"flash_attention": flash_attention, "flash_decode": flash_decode,
+            "moe_gating": moe_gating, "ssd_state_scan": ssd_state_scan}
+
+
+def reset_launches() -> None:
+    for fn in kernels().values():
+        fn.launches = 0
+
+
+def launches_now():
+    return {name: fn.launches for name, fn in kernels().items()}
+
+
 def bound_of(flops: float, nbytes: float, dtype: str):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -105,13 +156,27 @@ ATTN_CASES = [  # (B, Sq, Sk, H, K, hd, causal)
     (1, 1000, 1000, 14, 2, 64, True),
     (2, 200, 17, 16, 8, 128, False),
     (1, 1000, 1000, 14, 2, 64, False),
+    (1, 700, 700, 32, 32, 80, True),       # zamba2's shared block, head dim 80
+    (2, 17, 700, 32, 32, 80, True),
 ]
 
 DECODE_CASES = [  # (B, Smax, H, K, hd, lengths)
     (8, 2048, 16, 8, 128, [1, 7, 64, 65, 1000, 1500, 2047, 2048]),
     (3, 300, 14, 2, 64, [1, 150, 300]),
     (2, 512, 16, 8, 128, 300),            # one scalar length for the batch
+    (4, 1024, 32, 32, 80, [1, 300, 700, 1024]),   # zamba2, head dim 80, group 1
+    (4, 1024, 32, 32, 80, 716),
 ]
+
+GATING_CASES = [  # (T, E, k, tied logits)
+    (4, 128, 8, False),                   # qwen3-moe decode, 4 slots
+    (1200, 128, 8, False),                # qwen3-moe prefill, 4 x 300 tokens
+    (300, 64, 6, False),
+    (17, 8, 2, False),
+    (1200, 128, 8, True),                 # rows rounded to one decimal, one constant row
+]
+
+SCAN_CASES = [(1, 3, 64, 80, 64), (2, 5, 4, 16, 16)]   # (B, C, H, P, N)
 
 
 def check_kernels(torch, dev):
@@ -149,6 +214,51 @@ def check_kernels(torch, dev):
             print(f"  flash_decode {dtype_name} B={B} Smax={Smax} H={H} K={K} hd={hd} "
                   f"lengths={lengths}: max_abs_err={err:.3e} (tol {tol})")
             check(ok, f"flash_decode disagrees with decode_attention_ref: {err}")
+    check_moe_gating(torch, dev, gen)
+    check_ssd_scan(torch, dev, gen)
+
+
+def gating_logits(torch, gen, dev, T, E, tied):
+    x = torch.randn((T, E), generator=gen, device=dev)
+    if tied:
+        x = torch.round(x * 10) / 10
+        x[0] = 0.5
+    return x
+
+
+def check_moe_gating(torch, dev, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gating import moe_gating
+    for T, E, k, tied in GATING_CASES:
+        x = gating_logits(torch, gen, dev, T, E, tied)
+        w, ids = moe_gating(x, k)
+        want_w, want_ids = ref.moe_gating_ref(x, k)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(ids, want_ids))
+        err, ok = max_err(w, want_w, TOL["float32"])
+        print(f"  moe_gating T={T} E={E} k={k} tied={tied}: ids equal={same}, "
+              f"weights max_abs_err={err:.3e} (tol {TOL['float32']})")
+        check(same, f"moe_gating ids differ from moe_gating_ref at T={T} E={E} k={k}")
+        check(ok, f"moe_gating weights disagree with moe_gating_ref: {err}")
+
+
+def check_ssd_scan(torch, dev, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_state_scan
+    for B, C, H, P, N in SCAN_CASES:
+        xs = torch.randn((B, C, H, P, N), generator=gen, device=dev)
+        a = torch.rand((B, C, H), generator=gen, device=dev) * 0.69 + 0.3
+        for s0 in (None, torch.randn((B, H, P, N), generator=gen, device=dev)):
+            prefix, final = ssd_state_scan(xs, a, s0)
+            want_prefix, want_final = ref.ssd_state_scan_ref(xs, a, s0)
+            torch.cuda.synchronize()
+            err_p, ok_p = max_err(prefix, want_prefix, TOL["float32"])
+            err_f, ok_f = max_err(final, want_final, TOL["float32"])
+            print(f"  ssd_state_scan B={B} C={C} H={H} P={P} N={N} "
+                  f"init={s0 is not None}: max_abs_err prefix={err_p:.3e} "
+                  f"final={err_f:.3e} (tol {TOL['float32']})")
+            check(ok_p and ok_f, f"ssd_state_scan disagrees with ssd_state_scan_ref: "
+                                 f"{err_p} / {err_f}")
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +266,6 @@ def check_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 
 def serve(torch, np, dev, cfg, params):
-    from repro_torch.kernels.decode_attention import flash_decode
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.serve.engine import ServeEngine
 
     # warm-up on a small engine: cuBLAS handles, allocator, first launches
@@ -172,21 +280,21 @@ def serve(torch, np, dev, cfg, params):
     eng = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ, device=dev)
     reqs = [eng.submit(rng.integers(0, cfg.vocab, n).tolist(), max_new=MAX_NEW,
                        priority=int(p)) for n, p in zip(lengths, priorities)]
-    flash_attention.launches = 0
-    flash_decode.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "flash_decode": flash_decode.launches}
+    launches = launches_now()
 
     check(len(done) == N_REQUESTS and all(r.done for r in reqs),
           f"{len(done)} of {N_REQUESTS} requests finished")
     check(all(len(r.out) == MAX_NEW for r in reqs), "a request stopped short")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out), "token out of range")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the serving path")
+    for name in ("flash_attention", "flash_decode"):
+        check(launches[name] > 0, f"{name} was not launched on the serving path")
+    check(launches["moe_gating"] == launches["ssd_state_scan"] == 0,
+          "a MoE or SSD kernel launched on the dense path")
     check(launches["flash_attention"] == N_REQUESTS * cfg.n_layers,
           f"flash_attention launches {launches['flash_attention']} != "
           f"{N_REQUESTS} prefills x {cfg.n_layers} layers")
@@ -211,22 +319,28 @@ def serve(torch, np, dev, cfg, params):
 
 
 def profile_decode(torch, np, cfg, eng):
-    """Where a decode step's time goes, 8 slots busy at 512-token prompts:
-    host time per step, then device time per step by kernel from a
-    torch.profiler window (sum of kernel durations; one stream, so they do
-    not overlap), and the device's idle share of the unprofiled step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where a decode step's time goes, 8 slots busy at 512-token prompts."""
     rng = np.random.default_rng(2)
     for _ in range(MAX_BATCH):
         eng.submit(rng.integers(0, cfg.vocab, PROFILE_PROMPT).tolist(), max_new=16)
     eng._admit()
     eng.step()
+    profile_steps(torch, eng.step, f"decode step (8 slots, ~{PROFILE_PROMPT + 8} positions)")
+    eng.run()
+
+
+def profile_steps(torch, step, label):
+    """Host time per call of ``step`` over PROFILE_STEPS calls, then device
+    time per call by kernel from a torch.profiler window over as many more
+    (sum of kernel durations; one stream, so they do not overlap), and the
+    device's idle share of the unprofiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(PROFILE_STEPS):
-        eng.step()
+        step()
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
     by_name = {}
@@ -234,7 +348,7 @@ def profile_decode(torch, np, cfg, eng):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(PROFILE_STEPS):
-                eng.step()
+                step()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         for e in prof.events():
@@ -244,13 +358,146 @@ def profile_decode(torch, np, cfg, eng):
         print(f"  torch.profiler failed ({exc}); device time not measured")
     busy_ms = sum(by_name.values())
     busy_step = busy_ms / PROFILE_STEPS
-    print(f"  decode step (8 slots, ~{PROFILE_PROMPT + 8} positions): {step_ms:.2f} ms host "
-          f"clock; device busy {busy_step:.2f} ms/step, idle share {1 - busy_step / step_ms:.3f}"
-          f" (profiled window {wall_ms / PROFILE_STEPS:.2f} ms/step)" if busy_ms else
-          f"  decode step: {step_ms:.2f} ms host clock; profiler saw no device time")
+    print(f"  {label}: {step_ms:.2f} ms host clock; device busy {busy_step:.2f} ms/step, "
+          f"idle share {1 - busy_step / step_ms:.3f} (profiled window "
+          f"{wall_ms / PROFILE_STEPS:.2f} ms/step)" if busy_ms else
+          f"  {label}: {step_ms:.2f} ms host clock; profiler saw no device time")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {ms / PROFILE_STEPS:8.3f} ms/step  {name[:100]}")
-    eng.run()
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: serve zamba2-2.7b and qwen3-moe-30b-a3b through the serve
+# steps (the entry point the JAX package serves these families through)
+# ---------------------------------------------------------------------------
+
+def serve_steps(torch, np, dev, cfg, params, batch, prompt_len, max_seq, steps,
+                want_prefill, want_step):
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
+    ``steps`` greedy decode steps.  ``want_prefill`` / ``want_step`` give
+    each kernel's expected launches per prefill / per decode step.  Returns
+    the launches {"prefill": ..., "decode": ...}."""
+    from repro_torch.train.step import make_prefill, make_serve_step
+    prefill, serve_step = make_prefill(cfg), make_serve_step(cfg)
+
+    # warm-up at a small size: cuBLAS handles, allocator, first launches
+    warm = torch.ones((batch, 16), dtype=torch.int32, device=dev)
+    _, cache = prefill(params, {"tokens": warm}, max_seq=32)
+    serve_step(params, cache, warm[:, :1])
+    del cache
+    torch.cuda.synchronize()
+
+    rng = np.random.default_rng(3)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)), dtype=torch.int32,
+                        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks}, max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    at_prefill = launches_now()
+    check(tuple(logits.shape) == (batch, 1, cfg.vocab), f"prefill logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+
+    reset_launches()
+    nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    out = [nxt]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = serve_step(params, cache, nxt)
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    at_decode = launches_now()
+    check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    out = torch.cat(out, dim=1)
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of range")
+    check(int(cache["index"]) == prompt_len + steps, f"cache index {int(cache['index'])}")
+
+    ms_step = 1e3 * decode_s / steps
+    print(f"  batch={batch} prompt={prompt_len} max_seq={max_seq} steps={steps}: "
+          f"prefill_ms={1e3 * prefill_s:.1f} "
+          f"prefill_tok_s={batch * prompt_len / prefill_s:.1f} "
+          f"ms_per_decode_step={ms_step:.2f} decode_tok_s={batch * steps / decode_s:.1f}")
+    print(f"  launches per prefill: {at_prefill}")
+    print(f"  launches over {steps} decode steps: {at_decode}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  greedy tokens of slot 0: {out[0].tolist()}")
+    for name in kernels():
+        check(at_prefill[name] == want_prefill.get(name, 0),
+              f"{name}: {at_prefill[name]} launches per prefill, expected "
+              f"{want_prefill.get(name, 0)}")
+        check(at_decode[name] == steps * want_step.get(name, 0),
+              f"{name}: {at_decode[name]} launches over {steps} steps, expected "
+              f"{steps} x {want_step.get(name, 0)}")
+
+    def one_step():
+        nonlocal cache, nxt
+        logits, cache = serve_step(params, cache, nxt)
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+    profile_steps(torch, one_step, f"decode step ({batch} slots, ~{prompt_len + steps} "
+                                   f"positions)")
+    del cache, logits
+    return {"prefill": at_prefill, "decode": at_decode, "ms_per_step": ms_step}
+
+
+def serve_hybrid(torch, np, dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import bundle_for, param_count
+    arch, B, S, max_seq, steps = HYBRID_RUN
+    cfg = get_config(arch)
+    n_attn = cfg.n_layers // cfg.attn_every
+    t0 = time.perf_counter()
+    params = bundle_for(cfg).init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = param_count(cfg)
+    print(f"  {n / 1e9:.3f} B params ({2 * n / 2**30:.2f} GiB bf16), {cfg.n_layers} Mamba2 "
+          f"blocks, {n_attn} shared-attention applications (head dim {cfg.hd}), "
+          f"d_model {cfg.d_model}, init {time.perf_counter() - t0:.1f} s")
+    run = serve_steps(torch, np, dev, cfg, params, B, S, max_seq, steps,
+                      {"flash_attention": n_attn, "ssd_state_scan": cfg.n_layers},
+                      {"flash_decode": n_attn})
+    print("  teacher-forced logits, kernel path vs plain path")
+    teacher_forced(torch, np, cfg, params)
+    del params
+    return run
+
+
+def serve_moe(torch, np, dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import bundle_for, param_count
+    arch, B, S, max_seq, steps = MOE_RUN
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = bundle_for(cfg).init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = param_count(cfg)
+    expert_bytes = 2.0 * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * cfg.n_layers
+    print(f"  {n / 1e9:.3f} B params ({2 * n / 2**30:.2f} GiB bf16; "
+          f"{param_count(cfg, active_only=True) / 1e9:.3f} B active), {cfg.n_layers} layers, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, d_model {cfg.d_model}, "
+          f"init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    run = serve_steps(torch, np, dev, cfg, params, B, S, max_seq, steps,
+                      {"flash_attention": cfg.n_layers, "moe_gating": cfg.n_layers},
+                      {"flash_decode": cfg.n_layers, "moe_gating": cfg.n_layers})
+    floor_ms = expert_bytes / PEAK_BYTES * 1e3
+    print(f"  every decode step multiplies all {cfg.n_experts} experts of every layer: "
+          f"{expert_bytes / 1e9:.2f} GB of expert weights, at least {floor_ms:.2f} ms at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s; measured {run['ms_per_step']:.2f} ms per step")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, n_layers=MOE_TEACHER_LAYERS)
+    print(f"  teacher-forced logits at full width and {cfg.n_layers} layers, kernel path "
+          f"vs plain path")
+    params = bundle_for(cfg).init(cfg, 0, device=dev)
+    teacher_forced(torch, np, cfg, params)
+    del params
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -258,34 +505,47 @@ def profile_decode(torch, np, cfg, eng):
 # ---------------------------------------------------------------------------
 
 def run_path(torch, cfg, params, prompt, feed=None):
-    """Prefill + TEACHER_STEPS decode steps; greedy unless ``feed`` gives
-    the tokens.  Returns (f32 logits (steps+1, V), the tokens fed)."""
-    from repro_torch.models import transformer as T
+    """Prefill + TEACHER_STEPS decode steps through the model's bundle;
+    greedy unless ``feed`` gives the tokens.  Returns (f32 logits (steps+1,
+    V), the tokens fed)."""
+    from repro_torch.models import bundle_for
+    bundle = bundle_for(cfg)
     dev = params.embed.table.device
     toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
-    logits, cache = T.prefill(cfg, params, toks, max_seq=len(prompt) + TEACHER_STEPS)
+    logits, cache = bundle.prefill(cfg, params, toks, max_seq=len(prompt) + TEACHER_STEPS)
     rows, fed = [logits[0, -1].float()], []
     for i in range(TEACHER_STEPS):
         nxt = int(rows[-1].argmax()) if feed is None else feed[i]
         fed.append(nxt)
         step = torch.tensor([[nxt]], dtype=torch.int32, device=dev)
-        logits, cache = T.decode_step(cfg, params, cache, step)
+        logits, cache = bundle.decode_step(cfg, params, cache, step)
         rows.append(logits[0, -1].float())
     return torch.stack(rows), fed
 
 
 def teacher_forced(torch, np, cfg, params):
+    """Kernel path (bf16) against the plain path in bf16 and in f32: every
+    ``ops`` entry patched to its plain version, the model's weights cast
+    to f32 for the last run."""
     from repro_torch.kernels import ops, ref
 
+    plain_fns = {"attention": ref.attention_ref,
+                 "decode_attention": ref.decode_attention_ref,
+                 "moe_gating": ref.moe_gating_ref, "ssd_state_scan": ref.ssd_state_scan_ref}
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, TEACHER_PROMPT).tolist()
+    reset_launches()
     kern, fed = run_path(torch, cfg, params, prompt)
-    with mock.patch.object(ops, "attention", ref.attention_ref), \
-            mock.patch.object(ops, "decode_attention", ref.decode_attention_ref):
+    print(f"  kernel path launches: {launches_now()}")
+    with contextlib.ExitStack() as stack:
+        for name, fn in plain_fns.items():
+            stack.enter_context(mock.patch.object(ops, name, fn))
+        before = launches_now()
         plain, _ = run_path(torch, cfg, params, prompt, feed=fed)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         params32 = copy.deepcopy(params).float()
         plain32, _ = run_path(torch, cfg32, params32, prompt, feed=fed)
         del params32
+        check(launches_now() == before, "a kernel launched on the plain path")
     check(bool(torch.isfinite(kern).all()), "non-finite logits on the kernel path")
     gap = (kern - plain).abs()
     kern_err = (kern - plain32).abs()
@@ -307,14 +567,19 @@ def teacher_forced(torch, np, cfg, params):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the kernel table at serving shapes
+# phase 7: the kernel table at serving shapes
 # ---------------------------------------------------------------------------
 
-def kernel_table(torch, dev, launches, prompt_lengths):
+def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
+    """One row per kernel and serving shape.  ``dense``, ``hybrid`` and
+    ``moe`` hold the launches of phases 3, 5 and 6."""
     import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gating import moe_gating
+    from repro_torch.kernels.ssd_scan import ssd_state_scan
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -322,72 +587,119 @@ def kernel_table(torch, dev, launches, prompt_lengths):
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)   # 256 MB > L2
     rows = []
 
-    def randn(shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+    def randn(shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def sdpa_ms(fn):
+    def library_ms(fn):
         try:
             return time_ms(torch, fn, flush)
         except (TypeError, RuntimeError) as exc:   # e.g. a torch without enable_gqa
             print(f"  library call unavailable: {exc}")
             return None
 
-    # prefill of one qwen3-1.7b layer at S = 1024
-    H, K, hd, S = 16, 8, 128, 1024
-    q, k, v = randn((1, S, H, hd)), randn((1, S, K, hd)), randn((1, S, K, hd))
-    err, ok = max_err(flash_attention(q, k, v), ref.attention_ref(q, k, v), TOL["bfloat16"])
-    check(ok, "flash_attention disagrees at the timed shape")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = S * (S + 1) // 2                      # causal (query, key) pairs
-    flops = 4.0 * H * hd * pairs
-    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + q.numel())
-    bound, by = bound_of(flops, nbytes, "bfloat16")
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:94",
-        "shape": f"qwen3-1.7b prefill layer: B=1 S={S} H={H} K={K} hd={hd} bf16 causal",
-        "launches": launches["flash_attention"], "max_abs_err": err,
-        "ms": time_ms(torch, lambda: flash_attention(q, k, v), flush),
-        "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v), flush),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": sdpa_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-    })
+    def add(name, source, replaces, shape, launches, kernel, plain, flops, nbytes, dtype,
+            library, tol, compare=None):
+        out, want = kernel(), plain()
+        if compare is None:
+            err, ok = max_err(out, want, tol)
+        else:
+            err, ok = compare(out, want)
+        check(ok, f"{name} disagrees with its plain version at {shape}: {err}")
+        bound, by = bound_of(flops, nbytes, dtype)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "shape": shape, "launches": launches,
+            "max_abs_err": err, "ms": time_ms(torch, kernel, flush),
+            "plain_ms": time_ms(torch, plain, flush), "bound_ms": bound, "bound_by": by,
+            "library_ms": None if library is None else library_ms(library),
+        })
 
-    # decode of one qwen3-1.7b layer: 8 slots, the serving run's first eight
-    # prompts half-way through their 32 new tokens
-    B, Smax = MAX_BATCH, MAX_SEQ
-    lens = [n + MAX_NEW // 2 for n in prompt_lengths[:B]]
-    q = randn((B, 1, H, hd))
-    ck, cv = randn((2, B, Smax, K, hd))[1], randn((2, B, Smax, K, hd))[1]
-    length = torch.tensor(lens, dtype=torch.int32, device=dev)
-    err, ok = max_err(flash_decode(q, ck, cv, length),
-                      ref.decode_attention_ref(q, ck, cv, length), TOL["bfloat16"])
-    check(ok, "flash_decode disagrees at the timed shape")
-    mask = (torch.arange(Smax, device=dev)[None, :] < length[:, None])[:, None, None, :]
-    qt, kt, vt = q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)
-    flops = 4.0 * H * hd * sum(lens)
-    nbytes = 2.0 * (2 * K * hd * sum(lens) + 2 * q.numel()) + 4 * B
-    bound, by = bound_of(flops, nbytes, "bfloat16")
-    rows.append({
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:85",
-        "shape": f"qwen3-1.7b decode layer: B={B} Smax={Smax} H={H} K={K} hd={hd} bf16 "
-                 f"lengths={lens}",
-        "launches": launches["flash_decode"], "max_abs_err": err,
-        "ms": time_ms(torch, lambda: flash_decode(q, ck, cv, length), flush),
-        "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(q, ck, cv, length),
-                            flush),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": sdpa_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-    })
+    def attention_row(model, B, S, H, K, hd, launches):
+        q, k, v = randn((B, S, H, hd)), randn((B, S, K, hd)), randn((B, S, K, hd))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = S * (S + 1) // 2                  # causal (query, key) pairs
+        add("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:94",
+            f"{model} prefill layer: B={B} S={S} H={H} K={K} hd={hd} bf16 causal", launches,
+            lambda: flash_attention(q, k, v), lambda: ref.attention_ref(q, k, v),
+            4.0 * B * H * hd * pairs, 2.0 * (2 * q.numel() + k.numel() + v.numel()),
+            "bfloat16", lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), TOL["bfloat16"])
+
+    def decode_row(model, B, Smax, H, K, hd, lens, launches):
+        q = randn((B, 1, H, hd))
+        ck, cv = randn((2, B, Smax, K, hd))[1], randn((2, B, Smax, K, hd))[1]
+        if isinstance(lens, list):
+            length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        else:                                     # one 0-dim length, as a lockstep batch
+            length, lens = torch.tensor(lens, dtype=torch.int32, device=dev), [lens] * B
+        valid = torch.arange(Smax, device=dev)[None, :] < length.reshape(-1, 1)
+        mask = valid.expand(B, Smax)[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)
+        add("flash_decode", "decode_attention.cu", "src/repro/kernels/decode_attention.py:85",
+            f"{model} decode layer: B={B} Smax={Smax} H={H} K={K} hd={hd} bf16 "
+            f"lengths={lens if len(set(lens)) > 1 else lens[0]}", launches,
+            lambda: flash_decode(q, ck, cv, length),
+            lambda: ref.decode_attention_ref(q, ck, cv, length),
+            4.0 * H * hd * sum(lens), 2.0 * (2 * K * hd * sum(lens) + 2 * q.numel())
+            + 4 * length.numel(), "bfloat16",
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=True), TOL["bfloat16"])
+
+    def gating_row(T, E, k, launches, phase):
+        x = torch.randn((T, E), generator=gen, device=dev)
+
+        def compare(out, want):
+            err, ok = max_err(out[0], want[0], TOL["float32"])
+            return err, ok and bool(torch.equal(out[1], want[1]))
+
+        add("moe_gating", "moe_gating.cu", "src/repro/kernels/moe_gating.py:55",
+            f"qwen3-moe-30b-a3b {phase} router: T={T} E={E} k={k} f32", launches,
+            lambda: moe_gating(x, k), lambda: ref.moe_gating_ref(x, k),
+            T * E * (4.0 + 2 * k), 4.0 * T * E + 8.0 * T * k, "float32", None, None, compare)
+
+    def scan_row(B, C, H, P, N, launches):
+        xs = torch.randn((B, C, H, P, N), generator=gen, device=dev)
+        a = torch.rand((B, C, H), generator=gen, device=dev) * 0.69 + 0.3
+
+        def compare(out, want):
+            (ep, okp), (ef, okf) = (max_err(o, w, TOL["float32"]) for o, w in zip(out, want))
+            return max(ep, ef), okp and okf
+
+        add("ssd_state_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:62",
+            f"zamba2-2.7b prefill Mamba2 block: B={B} C={C} H={H} P={P} N={N} f32", launches,
+            lambda: ssd_state_scan(xs, a), lambda: ref.ssd_state_scan_ref(xs, a),
+            2.0 * xs.numel(), 4.0 * (2 * xs.numel() + a.numel() + B * H * P * N),
+            "float32", None, None, compare)
+
+    # qwen3-1.7b (phase 3): one prefill layer at S = 1024; one decode layer,
+    # 8 slots, the serving run's first eight prompts half-way through their
+    # 32 new tokens
+    q17 = get_config(SERVE_ARCH)
+    attention_row(SERVE_ARCH, 1, 1024, q17.n_heads, q17.n_kv_heads, q17.hd,
+                  dense["flash_attention"])
+    decode_row(SERVE_ARCH, MAX_BATCH, MAX_SEQ, q17.n_heads, q17.n_kv_heads, q17.hd,
+               [n + MAX_NEW // 2 for n in prompt_lengths[:MAX_BATCH]], dense["flash_decode"])
+    # zamba2-2.7b (phase 5): its shared block at head dim 80; the state scan
+    # of one Mamba2 block's prefill
+    arch, B, S, max_seq, steps = HYBRID_RUN
+    z = get_config(arch)
+    attention_row(arch, B, S, z.n_heads, z.n_kv_heads, z.hd,
+                  hybrid["prefill"]["flash_attention"])
+    decode_row(arch, B, max_seq, z.n_heads, z.n_kv_heads, z.hd, S + steps // 2,
+               hybrid["decode"]["flash_decode"])
+    d_inner = z.ssm_expand * z.d_model
+    scan_row(B, -(-S // z.chunk), z.ssm_heads, d_inner // z.ssm_heads, z.ssm_state,
+             hybrid["prefill"]["ssd_state_scan"])
+    # qwen3-moe-30b-a3b (phase 6): the router at prefill and at decode
+    arch, B, S, max_seq, steps = MOE_RUN
+    m = get_config(arch)
+    gating_row(B * S, m.n_experts, m.top_k, moe["prefill"]["moe_gating"], "prefill")
+    gating_row(B, m.n_experts, m.top_k, moe["decode"]["moe_gating"], "decode")
     for r in rows:
-        print(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms) "
-              f"at {r['shape']}")
+        print(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
+              f"{r['launches']} launches) at {r['shape']}")
     return rows
 
 
@@ -417,33 +729,43 @@ def main() -> int:
           f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     try:
-        print("phase 1: build")
-        t0 = time.perf_counter()
-        so, log = _build.build()
-        print(f"  built {so.name} in {time.perf_counter() - t0:.1f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "warning" in line:
-                print(f"  {line.strip()}")
+        with Phase("phase 1: build"):
+            t0 = time.perf_counter()
+            so, log = _build.build()
+            print(f"  built {so.name} in {time.perf_counter() - t0:.1f} s")
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "warning" in line:
+                    print(f"  {line.strip()}")
 
-        print("phase 2: kernels vs plain versions")
-        check_kernels(torch, dev)
+        with Phase("phase 2: kernels vs plain versions"):
+            check_kernels(torch, dev)
 
-        print(f"phase 3: serve {SERVE_ARCH}")
-        cfg = get_config(SERVE_ARCH)
-        t0 = time.perf_counter()
-        params = bundle_for(cfg).init(cfg, 0, device=dev)
-        torch.cuda.synchronize()
-        print(f"  {param_count(cfg) / 1e9:.3f} B params, {cfg.n_layers} layers, "
-              f"d_model {cfg.d_model}, init {time.perf_counter() - t0:.1f} s")
-        launches, prompt_lengths = serve(torch, np, dev, cfg, params)
-        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        with Phase(f"phase 3: serve {SERVE_ARCH}"):
+            cfg = get_config(SERVE_ARCH)
+            t0 = time.perf_counter()
+            params = bundle_for(cfg).init(cfg, 0, device=dev)
+            torch.cuda.synchronize()
+            print(f"  {param_count(cfg) / 1e9:.3f} B params, {cfg.n_layers} layers, "
+                  f"d_model {cfg.d_model}, init {time.perf_counter() - t0:.1f} s")
+            torch.cuda.reset_peak_memory_stats()
+            launches, prompt_lengths = serve(torch, np, dev, cfg, params)
+            print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-        print("phase 4: teacher-forced logits, kernel path vs plain path")
-        teacher_forced(torch, np, cfg, params)
-        del params
+        with Phase("phase 4: teacher-forced logits, kernel path vs plain path"):
+            teacher_forced(torch, np, cfg, params)
+            del params
+            torch.cuda.empty_cache()
 
-        print("phase 5: kernel times at serving shapes")
-        rows = kernel_table(torch, dev, launches, prompt_lengths)
+        with Phase(f"phase 5: serve {HYBRID_RUN[0]} (hybrid) through the serve steps"):
+            hybrid = serve_hybrid(torch, np, dev)
+            torch.cuda.empty_cache()
+
+        with Phase(f"phase 6: serve {MOE_RUN[0]} (MoE) through the serve steps"):
+            moe = serve_moe(torch, np, dev)
+            torch.cuda.empty_cache()
+
+        with Phase("phase 7: kernel times at serving shapes"):
+            rows = kernel_table(torch, dev, launches, prompt_lengths, hybrid, moe)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels for the attention hot spots, with their plain
-PyTorch versions (``ref``) and the device dispatch the models call (``ops``).
-Importing this package builds nothing; the first launch builds the library.
+"""Hand-written CUDA kernels for the attention, MoE-router and SSD-scan hot
+spots, with their plain PyTorch versions (``ref``) and the device dispatch
+the models call (``ops``).  Importing this package builds nothing; the first
+launch builds the library.
 """
 
 from . import ops, ref

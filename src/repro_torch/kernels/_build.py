@@ -22,7 +22,8 @@ __all__ = ["build", "library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("flash_attention.cu", "decode_attention.cu")
+_SOURCES = ("flash_attention.cu", "decode_attention.cu", "moe_gating.cu",
+            "ssd_scan.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -92,5 +93,9 @@ def library() -> ctypes.CDLL:
         lib.flash_decode_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, ptr] + [i32] * 8 + [
             i64p, ctypes.c_float, ptr, ptr]
         lib.flash_decode_fwd.restype = i32
+        lib.moe_gating_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 4 + [ptr]
+        lib.moe_gating_fwd.restype = i32
+        lib.ssd_scan_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        lib.ssd_scan_fwd.restype = i32
         _lib = lib
     return _lib

@@ -24,7 +24,8 @@
 // query heads of the KV head share each K/V tile, which 128 threads copy
 // with 16-byte loads into padded shared memory.  Per 64-key tile: scores
 // (two threads per key, half the head dim each), an online softmax per head
-// (one warp per head), then PV with each thread owning one output column.
+// (one warp per head), then PV with each thread owning one output column
+// (head dims 64, 80 and 128; at 80, 80 of the 128 threads do PV).
 // Each block writes its unnormalised f32 accumulator with its running max
 // and sum; a second kernel rescales the slot's chunks to a common max and
 // sums them.  Chunks past the slot's length are neither run nor read.  Not
@@ -47,7 +48,10 @@ constexpr int MAXG = 8;   // largest GQA group the kernel takes
 template <typename T, int HD>
 struct DecodeSmem {
   using TL = Tile<T, HD>;
-  static constexpr int kSplit = NT / HD;  // threads per output column
+  // threads per output column; for HD 80 only the first kSplit * HD = 80
+  // threads accumulate PV, the other 48 sit that phase out
+  static constexpr int kSplit = NT / HD;
+  static constexpr int kActive = kSplit * HD;
   static constexpr size_t q = 0;                                     // f32 [MAXG][HD]
   static constexpr size_t k = q + sizeof(float) * MAXG * HD;         // T [TK][kLd]
   static constexpr size_t v = k + sizeof(T) * TK * TL::kLd;          // T [TK][kLd]
@@ -110,6 +114,8 @@ flash_decode_chunk_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   }
   const int col = tid % HD;         // output column this thread accumulates
   const int kpart = tid / HD;       // ... over keys j with j % kSplit == kpart
+  // ... if it takes part in PV at all (every thread unless HD is 80)
+  const bool pv = SM::kActive == NT || tid < SM::kActive;
   float acc[MAXG];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
@@ -184,18 +190,20 @@ flash_decode_chunk_kernel(const T* __restrict__ q, const T* __restrict__ ck,
 #pragma unroll
     for (int g = 0; g < MAXG; ++g)
       if (g < group) acc[g] *= Cs[g];
-    for (int j = kpart; j < TK; j += SM::kSplit) {
-      const float vf = to_f32(Vs[j * TL::kLd + col]);
+    if (pv) {
+      for (int j = kpart; j < TK; j += SM::kSplit) {
+        const float vf = to_f32(Vs[j * TL::kLd + col]);
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < group) acc[g] = fmaf(Sx[g * TK + j], vf, acc[g]);
+        for (int g = 0; g < MAXG; ++g)
+          if (g < group) acc[g] = fmaf(Sx[g * TK + j], vf, acc[g]);
+      }
     }
     __syncthreads();  // K/V tiles and scores are overwritten next
   }
 
 #pragma unroll
   for (int g = 0; g < MAXG; ++g)
-    if (g < group) Red[(kpart * MAXG + g) * HD + col] = acc[g];
+    if (pv && g < group) Red[(kpart * MAXG + g) * HD + col] = acc[g];
   __syncthreads();
   for (int i = tid; i < group * HD; i += NT) {
     const int g = i / HD;
@@ -290,12 +298,18 @@ extern "C" int flash_decode_fwd(const void* q, const void* ck, const void* cv,
   if (is_bf16 && hd == 128)
     return launch<__nv_bfloat16, 128>(q, ck, cv, lengths, len_stride, o, B, Smax, H, K,
                                       chunk, strides, scale, p, s);
+  if (is_bf16 && hd == 80)
+    return launch<__nv_bfloat16, 80>(q, ck, cv, lengths, len_stride, o, B, Smax, H, K,
+                                     chunk, strides, scale, p, s);
   if (is_bf16 && hd == 64)
     return launch<__nv_bfloat16, 64>(q, ck, cv, lengths, len_stride, o, B, Smax, H, K,
                                      chunk, strides, scale, p, s);
   if (!is_bf16 && hd == 128)
     return launch<float, 128>(q, ck, cv, lengths, len_stride, o, B, Smax, H, K, chunk,
                               strides, scale, p, s);
+  if (!is_bf16 && hd == 80)
+    return launch<float, 80>(q, ck, cv, lengths, len_stride, o, B, Smax, H, K, chunk,
+                             strides, scale, p, s);
   if (!is_bf16 && hd == 64)
     return launch<float, 64>(q, ck, cv, lengths, len_stride, o, B, Smax, H, K, chunk,
                              strides, scale, p, s);

@@ -21,8 +21,9 @@
 // loads need the whole block to synchronise.  Inputs are read in place
 // through their strides; ragged tails of Sq and Sk are masked, not asserted.
 // Masked scores take the oracle's -1e30; key rows past Sk take -inf, so they
-// never count.  Not yet used: TMA, wgmma, warp specialisation, keeping the
-// accumulator in registers.
+// never count.  Head dims 64, 80 (zamba2's shared block: five 16-wide WMMA
+// tiles, 160-byte rows) and 128 are compiled.  Not yet used: TMA, wgmma,
+// warp specialisation, keeping the accumulator in registers.
 
 #include <mma.h>
 
@@ -118,18 +119,22 @@ __device__ __forceinline__ void tile_pv(const float* Ps, const float* Vs, float*
                                         const float* Cs, int warp, int lane) {
   using TL = Tile<float, HD>;
   using SM = AttnSmem<float, HD>;
-  constexpr int ND = HD / 32;
+  constexpr int ND = (HD + 31) / 32;   // HD 80: the third column set is half used
+  // column lane + 32i, clamped for the lanes past HD (their sums are dropped)
+  int col[ND];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) col[i] = min(lane + 32 * i, HD - 1);
   float acc[16][ND];
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const float c = Cs[warp * 16 + r];
 #pragma unroll
-    for (int i = 0; i < ND; ++i) acc[r][i] = Os[(warp * 16 + r) * SM::kLdO + lane + 32 * i] * c;
+    for (int i = 0; i < ND; ++i) acc[r][i] = Os[(warp * 16 + r) * SM::kLdO + col[i]] * c;
   }
   for (int j = 0; j < BK; ++j) {
     float vv[ND];
 #pragma unroll
-    for (int i = 0; i < ND; ++i) vv[i] = Vs[j * TL::kLd + lane + 32 * i];
+    for (int i = 0; i < ND; ++i) vv[i] = Vs[j * TL::kLd + col[i]];
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const float p = Ps[(warp * 16 + r) * SM::kLdP + j];
@@ -137,10 +142,12 @@ __device__ __forceinline__ void tile_pv(const float* Ps, const float* Vs, float*
       for (int i = 0; i < ND; ++i) acc[r][i] = fmaf(p, vv[i], acc[r][i]);
     }
   }
+  __syncwarp();  // every lane has read the clamped columns it shares
 #pragma unroll
   for (int r = 0; r < 16; ++r)
 #pragma unroll
-    for (int i = 0; i < ND; ++i) Os[(warp * 16 + r) * SM::kLdO + lane + 32 * i] = acc[r][i];
+    for (int i = 0; i < ND; ++i)
+      if (lane + 32 * i < HD) Os[(warp * 16 + r) * SM::kLdO + col[i]] = acc[r][i];
 }
 
 // O[rows of warp] = O * corr + P V, bf16 path on the tensor cores: the
@@ -301,10 +308,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && hd == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
+  if (is_bf16 && hd == 80)
+    return launch<__nv_bfloat16, 80>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (is_bf16 && hd == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (!is_bf16 && hd == 128)
     return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
+  if (!is_bf16 && hd == 80)
+    return launch<float, 80>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (!is_bf16 && hd == 64)
     return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
   return cudaErrorInvalidValue;

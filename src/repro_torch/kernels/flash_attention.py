@@ -2,8 +2,9 @@
 
 It replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas
 TPU) and takes what the serving path sends it: any Sq and Sk (ragged tails
-are masked in the kernel), bf16 or f32, head dim 64 or 128.  It runs only on
-CUDA tensors; ``ops.attention`` sends CPU tensors to the plain version.
+are masked in the kernel), bf16 or f32, head dim 64, 80 or 128.  It runs
+only on CUDA tensors; ``ops.attention`` sends CPU tensors to the plain
+version.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from ._build import library
 __all__ = ["flash_attention", "check_kernel_input"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 def check_kernel_input(name: str, t: torch.Tensor, like: torch.Tensor) -> None:

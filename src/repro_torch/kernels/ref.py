@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 They compute what ``repro.kernels.ref`` computes (the pure-jnp oracles):
 the CPU path of ``ops`` runs them, the tests hold them against the JAX
@@ -8,11 +8,12 @@ card.  Grouped-query form: the KV heads are never repeated.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
-__all__ = ["attention_ref", "decode_attention_ref"]
+__all__ = ["attention_ref", "decode_attention_ref", "ssd_state_scan_ref",
+           "moe_gating_ref"]
 
 _NEG = -1e30
 
@@ -57,3 +58,33 @@ def decode_attention_ref(q: torch.Tensor, cache_k: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", probs, cache_v)
     return out.reshape(B, 1, H, hd)
+
+
+def ssd_state_scan_ref(chunk_states: torch.Tensor, chunk_decays: torch.Tensor,
+                       init_state: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 inter-chunk state recurrence.  chunk_states: (B,C,H,P,N),
+    chunk_decays: (B,C,H).  Returns (prefix (B,C,H,P,N), the state entering
+    each chunk; final (B,H,P,N)), walking c in order:
+    ``prefix[c] = s; s = a[c] * s + x[c]``."""
+    B, C, H, P, N = chunk_states.shape
+    s = (torch.zeros((B, H, P, N), dtype=chunk_states.dtype,
+                     device=chunk_states.device)
+         if init_state is None else init_state)
+    prefix = []
+    for c in range(C):
+        prefix.append(s)
+        s = chunk_decays[:, c, :, None, None] * s + chunk_states[:, c]
+    return torch.stack(prefix, dim=1), s
+
+
+def moe_gating_ref(logits: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Router: softmax over experts in f32, top-k, renormalised.  logits
+    (T,E) -> (weights (T,k) f32, ids (T,k) int32).  Ties go to the lowest
+    expert index, as ``lax.top_k`` breaks them: a stable descending sort
+    keeps equal values in index order (``torch.topk`` promises no order)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :k], ids[:, :k]
+    return w / w.sum(dim=-1, keepdim=True), ids.to(torch.int32)

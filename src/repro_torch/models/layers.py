@@ -10,6 +10,7 @@ kernels on the card, their plain versions on the CPU.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
@@ -19,9 +20,9 @@ from torch import nn
 from ..kernels import ops
 
 __all__ = [
-    "RMSNorm", "Embed", "Attention", "MLP", "rms_norm", "embed_lookup",
-    "rope_freqs", "apply_rope", "attention_block", "attention_decode",
-    "mlp_block",
+    "RMSNorm", "Embed", "Attention", "MLP", "init_weights_", "rms_norm",
+    "embed_lookup", "rope_freqs", "apply_rope", "attention_block",
+    "attention_decode", "mlp_block",
 ]
 
 Offset = Union[int, torch.Tensor]
@@ -68,6 +69,35 @@ class MLP(nn.Module):
         self.w_gate = _param((d_model, d_ff), device, dtype)
         self.w_up = _param((d_model, d_ff), device, dtype)
         self.w_down = _param((d_ff, d_model), device, dtype)
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, seed: int, device: torch.device) -> nn.Module:
+    """Fill every parameter in place from a ``torch.Generator`` seeded with
+    ``seed``, as the JAX inits draw them: normal / sqrt(fan_in) for
+    projections (fan_in the second-to-last dim: ``(d_in, d_out)`` weights and
+    ``(E, d_in, d_out)`` experts alike), normal * 0.02 for the embedding,
+    normal * 0.1 for the Mamba2 conv, ones for norms and the skip, zeros for
+    biases and ``dt_bias``, ``log(linspace(1, 16, H))`` for ``a_log``.  Each
+    parameter is drawn in f32 scratch of at most 4096 leading rows, then
+    cast into place.  (The two frameworks' generators differ: for equal
+    weights, use ``interop``.)"""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if p.dim() == 1 and leaf in ("w", "norm", "q_norm", "k_norm", "d_skip"):
+            p.fill_(1.0)
+        elif leaf in ("bq", "bk", "bv", "dt_bias"):
+            p.zero_()
+        elif leaf == "a_log":
+            p.copy_(torch.log(torch.linspace(1.0, 16.0, p.shape[0], device=device)))
+        else:
+            std = {"table": 0.02, "conv_w": 0.1}.get(leaf, 1.0 / math.sqrt(p.shape[-2]))
+            for row in range(0, p.shape[0], 4096):
+                chunk = p[row:row + 4096]
+                chunk.copy_(torch.randn(chunk.shape, generator=gen, device=device) * std)
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -173,10 +203,10 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
         slots = torch.arange(B, device=x.device)
         cache_k[slots, index] = k[:, 0].to(cache_k.dtype)
         cache_v[slots, index] = v[:, 0].to(cache_v.dtype)
-    else:
-        i = int(index)
-        cache_k[:, i:i + 1] = k.to(cache_k.dtype)
-        cache_v[:, i:i + 1] = v.to(cache_v.dtype)
+    else:   # written at the device-side index: the host never waits
+        at = index.reshape(1).long()
+        cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, at, v.to(cache_v.dtype))
     o = ops.decode_attention(q, cache_k, cache_v, index + 1)   # (B, 1, H, hd)
     return o.reshape(B, 1, n_heads * head_dim) @ p.wo
 

@@ -1,8 +1,9 @@
 """Model interface: config -> {init, apply, prefill, decode_step, init_cache}.
 
 The port's counterpart of ``repro/models/model.py`` for the families it has
-ported so far: the dense decoder.  Other families (``vlm`` included, which
-the JAX package runs on the same decoder) raise until their slice lands.
+ported so far: the dense decoder, the MoE decoder and the Mamba2 hybrid.
+Other families (``vlm`` included, which the JAX package runs on the dense
+decoder) raise until their slice lands.
 """
 
 from __future__ import annotations
@@ -10,13 +11,15 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
+from types import ModuleType
 from typing import Callable, Optional
 
 from ..configs.base import ArchConfig, ShapeConfig
 
-__all__ = ["ModelBundle", "bundle_for", "param_count", "memory_estimate"]
+__all__ = ["ModelBundle", "PORTED_FAMILIES", "bundle_for", "model_module", "param_count",
+           "memory_estimate"]
 
-DENSE_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -29,21 +32,40 @@ class ModelBundle:
     init_cache: Callable
 
 
-def bundle_for(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family not in DENSE_FAMILIES:
+def model_module(cfg: ArchConfig) -> ModuleType:
+    """The module that runs ``cfg``'s family; its ``Model`` builds the
+    parameter container."""
+    if cfg.family == "dense":
+        from . import transformer as m
+    elif cfg.family == "moe":
+        from . import moe as m
+    elif cfg.family == "hybrid":
+        from . import hybrid as m
+    else:
         raise ValueError(f"family {cfg.family!r} is not ported yet; the PyTorch port "
-                         f"runs {DENSE_FAMILIES}")
-    from . import transformer as m
-    return ModelBundle("dense", m.init, m.apply, m.prefill, m.decode_step,
+                         f"runs {PORTED_FAMILIES}")
+    return m
+
+
+def bundle_for(cfg: ArchConfig) -> ModelBundle:
+    m = model_module(cfg)
+    return ModelBundle(cfg.family, m.init, m.apply, m.prefill, m.decode_step,
                        m.init_cache)
 
 
 @functools.lru_cache(maxsize=64)
-def param_count(cfg: ArchConfig) -> int:
-    """Exact parameter count from the model's shapes (nothing allocated)."""
-    bundle_for(cfg)
-    from .transformer import param_shapes
-    return sum(math.prod(s) for s in param_shapes(cfg).values())
+def _param_count(cfg: ArchConfig) -> int:
+    model = model_module(cfg).Model(cfg, device="meta")
+    return sum(math.prod(p.shape) for p in model.parameters())
+
+
+def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the model's shapes (nothing allocated);
+    ``active_only`` leaves out the experts a token is not routed to."""
+    n = _param_count(cfg)
+    if active_only and cfg.is_moe:
+        n -= (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.d_ff * cfg.n_layers
+    return n
 
 
 def memory_estimate(cfg: ArchConfig, shape: ShapeConfig, chips: int,
@@ -61,5 +83,9 @@ def memory_estimate(cfg: ArchConfig, shape: ShapeConfig, chips: int,
     cache_bytes = 0.0
     if shape.kind == "decode":
         kv = 2 * cfg.n_kv_heads * cfg.hd * shape.seq_len * shape.global_batch
-        cache_bytes = 2.0 * kv * cfg.n_layers
+        n_attn = cfg.n_layers if cfg.family != "hybrid" \
+            else cfg.n_layers // cfg.attn_every
+        if cfg.family == "ssm":
+            kv, n_attn = 0, 0
+        cache_bytes = 2.0 * kv * n_attn
     return (param_bytes + opt_bytes + act_bytes + cache_bytes) / max(chips, 1)

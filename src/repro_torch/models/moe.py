@@ -1,0 +1,190 @@
+"""Mixture-of-Experts transformer (qwen3-moe-30b-a3b, grok-1-314b), ported
+from ``repro/models/moe.py`` for serving on one device.
+
+Dispatch is the reference's sort-based capacity dispatch (``_local_moe``):
+tokens are routed by ``ops.moe_gating`` (the CUDA router kernel on the
+card), sorted by expert, scattered into an ``(E, cap, D)`` buffer and
+multiplied by every expert in three batched matrix products; assignments
+past an expert's capacity are dropped.  Only the single-device branch of
+``moe_block`` is ported; the expert-parallel ``shard_map`` branch waits for
+the multi-GPU slice.  The layers reuse the dense skeleton of
+``transformer.py`` with a ``Block`` whose feed-forward is the MoE.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import resolve_device
+from ..configs.base import ArchConfig
+from ..kernels import ops
+from . import layers as L
+from . import transformer as T
+
+__all__ = ["MoE", "Block", "Model", "init_moe", "init", "init_cache",
+           "moe_block", "hidden", "apply", "prefill", "decode_step"]
+
+init_cache = T.init_cache
+
+
+class MoE(nn.Module):
+    """Router (D,E) in f32; experts ``w_gate``/``w_up`` (E,D,F) and
+    ``w_down`` (E,F,D) in the model's dtype."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        E, D, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.router = L._param((D, E), device, torch.float32)
+        self.w_gate = L._param((E, D, F_), device, dtype)
+        self.w_up = L._param((E, D, F_), device, dtype)
+        self.w_down = L._param((E, F_, D), device, dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.norm1 = L.RMSNorm(cfg.d_model, **kw)
+        self.attn = L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, **kw)
+        self.norm2 = L.RMSNorm(cfg.d_model, **kw)
+        self.moe = MoE(cfg, **kw)
+
+
+def Model(cfg: ArchConfig, *, device=None, dtype=torch.float32) -> T.Transformer:
+    return T.Transformer(cfg, device=device, dtype=dtype, block=Block)
+
+
+def init_moe(cfg: ArchConfig, seed: int = 0, *, device=None) -> MoE:
+    """One MoE layer's weights, drawn as ``init`` draws them."""
+    device = resolve_device(device)
+    return L.init_weights_(MoE(cfg, device=device, dtype=T.dtype_of(cfg)), seed, device)
+
+
+def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> T.Transformer:
+    """Random weights from a seeded ``torch.Generator``, drawn on ``device``
+    in the config's dtype one parameter at a time: nothing of the model
+    passes through the host or exists in f32 beyond one parameter's
+    scratch."""
+    device = resolve_device(device)
+    return L.init_weights_(Model(cfg, device=device, dtype=T.dtype_of(cfg)), seed, device)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def _local_moe(cfg: ArchConfig, xf: torch.Tensor, p: MoE, e_lo: int = 0,
+               E_loc: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Sort-based dispatch of the tokens xf (T, D) into the experts
+    [e_lo, e_lo + E_loc) whose weights ``p`` holds.  Returns (the experts'
+    output (T, D), the Switch statistics (f_e, P_e) of the slice).
+
+    As in the reference: each assignment's position within its expert is
+    computed before the sort (a cumulative sum of one-hot rows in
+    token-major order), so the stably sorted stream is cut to its first
+    ``n_sel`` entries; assignments at or past ``cap`` are dropped and
+    contribute zero.  Every expert is multiplied, routed to or not.
+    """
+    T_, D = xf.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = E if E_loc is None else E_loc
+    Tk = T_ * k
+    cap = int(cfg.capacity_factor * Tk / E)
+    cap = max(8, (cap + 7) // 8 * 8)
+    n_sel = min(E_loc * cap, Tk)
+
+    logits = xf.float() @ p.router                             # (T, E)
+    weights, ids = ops.moe_gating(logits, k)                   # (T,k), (T,k)
+
+    probs = torch.softmax(logits, dim=-1)
+    # counts by scatter-add (exact in f32), not bincount, which waits for
+    # the device to size its output
+    frac_disp = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(
+        0, ids.reshape(-1), torch.ones(Tk, dtype=torch.float32, device=xf.device)) / Tk
+    aux_stats = (frac_disp[e_lo:e_lo + E_loc], probs.mean(dim=0)[e_lo:e_lo + E_loc])
+
+    flat_ids = ids.reshape(Tk).long() - e_lo                   # local coords
+    in_range = (flat_ids >= 0) & (flat_ids < E_loc)
+    lid = torch.where(in_range, flat_ids, E_loc)
+    oh = F.one_hot(lid, E_loc + 1)                             # (Tk, E+1)
+    pos = torch.cumsum(oh, dim=0).gather(1, lid[:, None])[:, 0] - 1
+    key = torch.where(in_range & (pos < cap), lid, E_loc)
+    order = torch.argsort(key, stable=True)[:n_sel]
+    sel_ids = key[order]
+    sel_pos = pos[order]
+    sel_tok = order // k
+    keep = sel_ids < E_loc
+
+    # The reference writes with mode="drop" at index cap for dropped
+    # assignments; here they go to one spare row past the buffer, which is
+    # never read, so the write needs no bounds check and no host sync.
+    slot = torch.where(keep, sel_ids * cap + sel_pos, E_loc * cap)
+    buf = torch.zeros((E_loc * cap + 1, D), dtype=xf.dtype, device=xf.device)
+    buf[slot] = xf[sel_tok]
+    buf = buf[:E_loc * cap].view(E_loc, cap, D)
+
+    h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
+    out = torch.bmm(h, p.w_down)                               # (E_loc, cap, D)
+
+    y_sel = out[sel_ids.clamp(max=E_loc - 1), sel_pos.clamp(max=cap - 1)]
+    w_sel = weights.reshape(Tk).to(xf.dtype)[order]
+    y_sel = torch.where(keep[:, None], y_sel * w_sel[:, None], 0.0)
+    # each assignment owns one row of (T*k, D): the sum over a token's k
+    # rows is then a plain reduction, not an atomic scatter-add
+    rows = torch.zeros((Tk, D), dtype=xf.dtype, device=xf.device)
+    rows[order] = y_sel
+    return rows.view(T_, k, D).sum(dim=1), aux_stats
+
+
+def moe_block(cfg: ArchConfig, p: MoE, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> ((B, S, D), load-balance aux scalar).  The
+    reference's single-shard branch (``tp_size <= 1``)."""
+    B, S, D = x.shape
+    y, (f, pr) = _local_moe(cfg, x.reshape(B * S, D), p, 0, cfg.n_experts)
+    return y.reshape(B, S, D), cfg.n_experts * torch.sum(f * pr)
+
+
+def _moe_ffn(cfg: ArchConfig, blk: Block, h: torch.Tensor) -> torch.Tensor:
+    return moe_block(cfg, blk.moe, h)[0]
+
+
+# ---------------------------------------------------------------------------
+# forward and serving
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def hidden(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final hidden states (B, S, D), mean per-layer load-balance aux)."""
+    x = L.embed_lookup(params.embed, tokens)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in params.blocks:
+        h = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)
+        x = x + L.attention_block(blk.attn, h, n_heads=cfg.n_heads,
+                                  n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                                  theta=cfg.rope_theta, eps=cfg.norm_eps)
+        y, aux = moe_block(cfg, blk.moe, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
+        x = x + y
+        aux_sum = aux_sum + aux
+    return x, aux_sum / cfg.n_layers
+
+
+def apply(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    return T.logits_of(cfg, params, hidden(cfg, params, tokens)[0])
+
+
+def prefill(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor,
+            max_seq: Optional[int] = None) -> Tuple[torch.Tensor, T.Cache]:
+    return T.prefill(cfg, params, tokens, max_seq, ffn=_moe_ffn)
+
+
+def decode_step(cfg: ArchConfig, params: T.Transformer, cache: T.Cache,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, T.Cache]:
+    return T.decode_step(cfg, params, cache, tokens, ffn=_moe_ffn)

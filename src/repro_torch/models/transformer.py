@@ -3,13 +3,14 @@ from ``repro/models/transformer.py`` for serving: init, prefill, decode.
 
 The JAX version stacks the layers along a leading dim and scans; here each
 layer is its own ``Block`` in an ``nn.ModuleList`` and a Python loop runs
-them.  ``repro_torch.interop`` moves weights between the two layouts.
+them.  ``repro_torch.interop`` moves weights between the two layouts.  The
+MoE family reuses the skeleton with its own block and feed-forward
+(``models/moe.py``).
 """
 
 from __future__ import annotations
 
-import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,8 +20,8 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import layers as L
 
-__all__ = ["Block", "Transformer", "init", "init_cache", "apply", "logits_of",
-           "prefill", "decode_step"]
+__all__ = ["Block", "Transformer", "Model", "init", "init_cache",
+           "block_fwd", "apply", "logits_of", "prefill", "decode_step"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -37,17 +38,22 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The parameters of one dense model; the functions below run it."""
+    """The parameters of one decoder (dense blocks unless ``block`` says
+    otherwise); the functions below run it."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, dtype=torch.float32):
+    def __init__(self, cfg: ArchConfig, *, device=None, dtype=torch.float32,
+                 block: type = Block):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.embed = L.Embed(cfg.vocab, cfg.d_model, **kw)
-        self.blocks = nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(block(cfg, **kw) for _ in range(cfg.n_layers))
         self.final_norm = L.RMSNorm(cfg.d_model, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Module()
             self.lm_head.w = L._param((cfg.d_model, cfg.vocab), device, dtype)
+
+
+Model = Transformer
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -58,28 +64,12 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> Transformer:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, drawn
-    as the JAX init draws them: normal / sqrt(d_in) for projections, normal
-    * 0.02 for the embedding, ones for norms, zeros for biases.  (The two
-    frameworks' generators differ: for equal weights, use ``interop``.)"""
+    on ``device`` in the config's dtype (``layers.init_weights_``)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    model = Transformer(cfg, device=device, dtype=dtype_of(cfg))
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "w" and p.dim() == 1 or leaf in ("q_norm", "k_norm"):
-            p.fill_(1.0)
-        elif leaf in ("bq", "bk", "bv"):
-            p.zero_()
-        else:
-            std = 0.02 if leaf == "table" else 1.0 / math.sqrt(p.shape[0])
-            for row in range(0, p.shape[0], 4096):   # bounded f32 scratch
-                chunk = p[row:row + 4096]
-                chunk.copy_(torch.randn(chunk.shape, generator=gen, device=device) * std)
-    return model
+    return L.init_weights_(Transformer(cfg, device=device, dtype=dtype_of(cfg)), seed,
+                           device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None, *,
@@ -104,17 +94,30 @@ def logits_of(cfg: ArchConfig, params: Transformer, x: torch.Tensor) -> torch.Te
     return L.rms_norm(params.final_norm.w, x, cfg.norm_eps) @ _out_proj(cfg, params)
 
 
+def _mlp(cfg: ArchConfig, blk: Block, h: torch.Tensor) -> torch.Tensor:
+    return L.mlp_block(blk.mlp, h)
+
+
+# the feed-forward half of a block: (cfg, block, normed x) -> residual update
+Ffn = Callable[[ArchConfig, nn.Module, torch.Tensor], torch.Tensor]
+
+
+def block_fwd(cfg: ArchConfig, blk: nn.Module, x: torch.Tensor, ffn: Ffn = _mlp
+              ) -> torch.Tensor:
+    """One pre-norm block: causal self-attention, then the feed-forward."""
+    h = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)
+    x = x + L.attention_block(blk.attn, h, n_heads=cfg.n_heads,
+                              n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                              theta=cfg.rope_theta, eps=cfg.norm_eps)
+    return x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
+
+
 @torch.no_grad()
 def apply(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Full forward: tokens (B, S) -> logits (B, S, V)."""
     x = L.embed_lookup(params.embed, tokens)
     for blk in params.blocks:
-        h = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)
-        x = x + L.attention_block(blk.attn, h, n_heads=cfg.n_heads,
-                                  n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                                  theta=cfg.rope_theta, eps=cfg.norm_eps)
-        h = L.rms_norm(blk.norm2.w, x, cfg.norm_eps)
-        x = x + L.mlp_block(blk.mlp, h)
+        x = block_fwd(cfg, blk, x)
     return logits_of(cfg, params, x)
 
 
@@ -124,7 +127,8 @@ def apply(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor) -> torch.T
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
-            max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+            max_seq: Optional[int] = None, *, ffn: Ffn = _mlp
+            ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt: last-position logits (B, 1, V) and a cache padded
     with zeros to ``max_seq`` positions."""
     B, S = tokens.shape
@@ -141,8 +145,7 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
                                  cfg.rope_theta, cfg.norm_eps)
         o = ops.attention(q, k, v, causal=True)
         x = x + o.reshape(B, S, cfg.n_heads * cfg.hd) @ blk.attn.wo
-        hn = L.rms_norm(blk.norm2.w, x, cfg.norm_eps)
-        x = x + L.mlp_block(blk.mlp, hn)
+        x = x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
         ks[i, :, :S] = k
         vs[i, :, :S] = v
     cache = {"k": ks, "v": vs,
@@ -152,7 +155,7 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Transformer, cache: Cache,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+                tokens: torch.Tensor, *, ffn: Ffn = _mlp) -> Tuple[torch.Tensor, Cache]:
     """One decode step: tokens (B, 1) -> logits (B, 1, V) and the cache,
     whose K/V tensors are updated in place and whose index advances."""
     index = cache["index"]
@@ -163,13 +166,6 @@ def decode_step(cfg: ArchConfig, params: Transformer, cache: Cache,
                                    n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                                    head_dim=cfg.hd, theta=cfg.rope_theta,
                                    eps=cfg.norm_eps)
-        hn = L.rms_norm(blk.norm2.w, x, cfg.norm_eps)
-        x = x + L.mlp_block(blk.mlp, hn)
+        x = x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
     logits = logits_of(cfg, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "index": index + 1}
-
-
-def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
-    """Parameter name -> shape, allocating nothing (meta device)."""
-    model = Transformer(cfg, device="meta")
-    return {name: tuple(p.shape) for name, p in model.named_parameters()}

@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_gating import moe_gating
+from repro_torch.kernels.ssd_scan import ssd_state_scan
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -41,6 +43,8 @@ def _assert_close(out, want, dtype):
     (1, 200, 200, 16, 8, 128, True),      # qwen3-1.7b heads, ragged prompt
     (2, 17, 130, 14, 2, 64, True),        # qwen2-0.5b heads, Sq != Sk
     (1, 65, 33, 16, 8, 128, False),
+    (1, 300, 300, 32, 32, 80, True),      # zamba2's shared block, head dim 80
+    (2, 17, 130, 32, 32, 80, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, Sq, Sk, H, K, hd,
                                               causal):
@@ -71,8 +75,63 @@ def test_flash_decode_kernel_matches_plain(cuda_device, dtype, length):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [[1, 64, 299, 1000], 700])
+def test_flash_decode_kernel_at_head_dim_80(cuda_device, dtype, length):
+    """zamba2's shared block: 32 KV heads of width 80, group 1."""
+    q, ck, cv = _randn(4, (4, 1, 32, 80), (4, 1024, 32, 80), (4, 1024, 32, 80),
+                       dtype=dtype, device=cuda_device)
+    if isinstance(length, list):
+        length = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    out = ops.decode_attention(q, ck, cv, length)
+    _assert_close(out, ref.decode_attention_ref(q, ck, cv, length), dtype)
+
+
+def _gating_logits(T, E, seed, tied, device):
+    x = np.random.default_rng(seed).standard_normal((T, E)).astype(np.float32)
+    if tied:                      # many exact ties, and one constant row
+        x = np.round(x, 1)
+        x[0] = 0.5
+    return torch.tensor(x, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k,tied", [
+    (4, 128, 8, False), (1200, 128, 8, False), (300, 64, 6, False), (17, 8, 2, False),
+    (1200, 128, 8, True), (33, 256, 32, True),
+])
+def test_moe_gating_kernel_matches_plain(cuda_device, T, E, k, tied):
+    x = _gating_logits(T, E, T + E, tied, cuda_device)
+    before = moe_gating.launches
+    w, ids = ops.moe_gating(x, k)
+    assert moe_gating.launches == before + 1
+    want_w, want_ids = ref.moe_gating_ref(x, k)
+    assert torch.equal(ids, want_ids)
+    _assert_close(w, want_w, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 64, 80, 64), (2, 5, 4, 16, 16), (1, 300, 2, 8, 8)])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_state_scan_kernel_matches_plain(cuda_device, shape, with_init):
+    B, C, H, P, N = shape
+    rng = np.random.default_rng(C)
+    xs = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda_device)
+    a = torch.tensor(rng.uniform(0.3, 0.99, (B, C, H)), dtype=torch.float32,
+                     device=cuda_device)
+    s0 = torch.tensor(rng.standard_normal((B, H, P, N)), dtype=torch.float32,
+                      device=cuda_device) if with_init else None
+    before = ssd_state_scan.launches
+    prefix, final = ops.ssd_state_scan(xs, a, s0)
+    assert ssd_state_scan.launches == before + 1
+    want_prefix, want_final = ref.ssd_state_scan_ref(xs, a, s0)
+    _assert_close(prefix, want_prefix, "float32")
+    _assert_close(final, want_final, "float32")
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
-    q, k, v = _randn(2, (1, 8, 4, 80), (1, 8, 2, 80), (1, 8, 2, 80), dtype="bfloat16",
+    q, k, v = _randn(2, (1, 8, 4, 96), (1, 8, 2, 96), (1, 8, 2, 96), dtype="bfloat16",
                      device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, k, v)
@@ -84,3 +143,18 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         flash_attention(q, k[:, :4], v[:, :4])
     with pytest.raises(ValueError, match="length must be"):
         flash_decode(q[:, :1], k, v, torch.tensor([8]))
+    logits = torch.zeros((4, 257), device=cuda_device)
+    with pytest.raises(ValueError, match="E <= 256"):
+        moe_gating(logits, 8)
+    with pytest.raises(ValueError, match="f32"):
+        moe_gating(logits[:, :128].to(torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="k <="):
+        moe_gating(logits[:, :8].contiguous(), 9)
+    xs = torch.zeros((1, 3, 2, 8, 8), device=cuda_device)
+    a = torch.ones((1, 3, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="f32 only"):
+        ssd_state_scan(xs.to(torch.bfloat16), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_state_scan(xs.transpose(3, 4), a)
+    with pytest.raises(ValueError, match="init_state"):
+        ssd_state_scan(xs, a, torch.zeros((1, 2, 8, 4), device=cuda_device))

@@ -55,7 +55,7 @@ def _close(t_out, j_out, tol=2e-5):
 
 
 def test_configs_match_jax():
-    for arch in ARCHS + ["phi4-mini-3.8b"]:
+    for arch in ARCHS + ["phi4-mini-3.8b", "qwen3-moe-30b-a3b", "zamba2-2.7b"]:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_config(arch))
         assert dataclasses.asdict(smoke_of(arch)) == dataclasses.asdict(jax_smoke(arch))
 
@@ -78,6 +78,21 @@ def test_param_count_and_memory_of_qwen3_1p7b_match_jax():
     from repro.configs.base import SHAPES as JAX_SHAPES
     for name, shape in SHAPES.items():
         assert memory_estimate(cfg, shape, 4) == jax_memory(jcfg, JAX_SHAPES[name], 4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-2.7b"])
+def test_param_count_and_memory_of_moe_and_hybrid_match_jax(arch):
+    """Full-size counts from the meta device (nothing allocated), the MoE's
+    active count, and the hybrid's memory estimate, which counts only its
+    n_layers // attn_every attention layers' cache."""
+    from repro.configs.base import SHAPES as JAX_SHAPES
+    from repro.models import memory_estimate as jax_memory
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    for active_only in (False, True):
+        assert param_count(cfg, active_only=active_only) == \
+            jax_param_count(jcfg, active_only=active_only)
+    for name, shape in SHAPES.items():
+        assert memory_estimate(cfg, shape, 1) == jax_memory(jcfg, JAX_SHAPES[name], 1)
 
 
 def test_apply_matches_jax(f32_pair):
@@ -176,9 +191,12 @@ def test_init_is_seeded_and_shaped():
 
 
 def test_bundle_for_is_dense_only():
-    assert bundle_for(smoke_of("lidc-demo")).family == "dense"
-    for arch in ("qwen3-moe-30b-a3b", "zamba2-2.7b", "xlstm-350m", "seamless-m4t-large-v2",
-                 "chameleon-34b"):
+    """The ported families resolve (dense, moe, hybrid); the others (ssm,
+    encdec, vlm) still raise."""
+    for arch, family in (("lidc-demo", "dense"), ("qwen3-moe-30b-a3b", "moe"),
+                         ("zamba2-2.7b", "hybrid")):
+        assert bundle_for(smoke_of(arch)).family == family
+    for arch in ("xlstm-350m", "seamless-m4t-large-v2", "chameleon-34b"):
         with pytest.raises(ValueError, match="not ported"):
             bundle_for(smoke_of(arch))
 
@@ -196,7 +214,10 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 def test_port_imports_without_jax_or_repro():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch, repro_torch.interop, repro_torch.serve.engine, "
-            "repro_torch.launch.serve, repro_torch.kernels.ops; "
+            "repro_torch.launch.serve, repro_torch.kernels.ops, repro_torch.models.moe, "
+            "repro_torch.models.mamba2, repro_torch.models.hybrid, "
+            "repro_torch.train.step, repro_torch.kernels.moe_gating, "
+            "repro_torch.kernels.ssd_scan; "
             "bad = sorted(m for m, mod in sys.modules.items() if mod is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))); print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
