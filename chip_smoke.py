@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-1. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and prints
+   each kernel's registers and spill bytes;
 2. holds each kernel against its plain PyTorch version on the card
    (attention in bf16 and f32 at head dims 64, 80 and 128 with ragged
-   lengths; the MoE router with ties, ids compared exactly; the SSD state
-   scan with and without an initial state);
+   lengths, query counts around the 64-row tile and strided views; the
+   MoE router with ties, ids compared exactly; the SSD state scan with and
+   without an initial state);
 3. serves qwen3-1.7b at full width and depth (random weights from a seeded
    ``torch.Generator``) through ``ServeEngine``: 12 requests, prompts of
    8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots;
@@ -19,9 +21,10 @@
 6. serves qwen3-moe-30b-a3b (full width, all 48 layers, 56.9 GiB of bf16
    weights drawn on the card) the same way: 4 prompts of 300 tokens, 16
    greedy steps; then its teacher-forced bound at full width and 4 layers;
-7. times each kernel at the serving shapes of phases 3, 5 and 6 beside its
-   bound, its plain version and one PyTorch library call where one exists,
-   and prints the table as JSON.
+7. times each kernel at the serving shapes of phases 3, 5 and 6 (attention
+   at all three GQA groups: 2, 1 and 8) beside its bound, its plain version
+   and one PyTorch library call where one exists, and prints the table as
+   JSON.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after.  The last
@@ -36,6 +39,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -142,11 +146,39 @@ def bound_of(flops: float, nbytes: float, dtype: str):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ptxas_summary(log: str):
+    """One line per compiled kernel from nvcc's ``--ptxas-options=-v``
+    output: its name, registers and spill bytes; warnings as they are."""
+    name, spills = None, "spills not reported"
+    for line in log.splitlines():
+        if "warning" in line:
+            yield line.strip()
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            yield f"{demangle(name)}: {m.group(1)} registers, {spills}"
+            name = None
+
+
+def demangle(name: str) -> str:
+    """``void ns::kernel<64>(args)`` -> ``kernel<64>``; the raw name without
+    ``c++filt``."""
+    try:
+        full = subprocess.run(["c++filt", name], capture_output=True, text=True,
+                              timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return name
+    full = full.replace("(anonymous namespace)::", "")
+    return full.split("(")[0].removeprefix("void ").split("::")[-1] or name
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-ATTN_CASES = [  # (B, Sq, Sk, H, K, hd, causal)
+ATTN_CASES = [  # (B, Sq, Sk, H, K, hd, causal[, "strided"])
     (1, 1, 1, 16, 8, 128, True),
     (1, 17, 17, 16, 8, 128, True),
     (2, 200, 200, 16, 8, 128, True),
@@ -158,6 +190,15 @@ ATTN_CASES = [  # (B, Sq, Sk, H, K, hd, causal)
     (1, 1000, 1000, 14, 2, 64, False),
     (1, 700, 700, 32, 32, 80, True),       # zamba2's shared block, head dim 80
     (2, 17, 700, 32, 32, 80, True),
+    (1, 150, 211, 32, 32, 80, True),       # head dim 80, ragged Sq and Sk tails
+    (4, 300, 300, 32, 4, 128, True),       # qwen3-moe prefill, group 8
+    # query counts around the 64-row tile; the causal diagonal on a tile
+    # edge (Sk = Sq) and inside a key tile (Sk = Sq + 100)
+    *((1, Sq, Sq + extra, 16, 8, 128, True) for Sq in (1, 63, 64, 65, 129)
+      for extra in (0, 100)),
+    # q a view with padded heads, k/v a layer of a stacked (2,B,S,K,hd) tensor
+    (2, 140, 140, 8, 4, 128, True, "strided"),
+    (2, 140, 140, 8, 4, 80, True, "strided"),
 ]
 
 DECODE_CASES = [  # (B, Smax, H, K, hd, lengths)
@@ -192,14 +233,19 @@ def check_kernels(torch, dev):
 
     for dtype_name in ("float32", "bfloat16"):
         dtype, tol = getattr(torch, dtype_name), TOL[dtype_name]
-        for B, Sq, Sk, H, K, hd, causal in ATTN_CASES:
-            q = randn((B, Sq, H, hd), dtype)
-            k, v = randn((B, Sk, K, hd), dtype), randn((B, Sk, K, hd), dtype)
+        for B, Sq, Sk, H, K, hd, causal, *strided in ATTN_CASES:
+            if strided:
+                q = randn((B, Sq, H, hd + 8), dtype)[..., :hd]
+                k, v = (randn((2, B, Sk, K, hd), dtype)[1] for _ in range(2))
+            else:
+                q = randn((B, Sq, H, hd), dtype)
+                k, v = randn((B, Sk, K, hd), dtype), randn((B, Sk, K, hd), dtype)
             err, ok = max_err(flash_attention(q, k, v, causal=causal),
                               ref.attention_ref(q, k, v, causal=causal), tol)
             torch.cuda.synchronize()
             print(f"  flash_attention {dtype_name} B={B} Sq={Sq} Sk={Sk} H={H} K={K} "
-                  f"hd={hd} causal={causal}: max_abs_err={err:.3e} (tol {tol})")
+                  f"hd={hd} causal={causal}{' strided' if strided else ''}: "
+                  f"max_abs_err={err:.3e} (tol {tol})")
             check(ok, f"flash_attention disagrees with attention_ref: {err}")
         for B, Smax, H, K, hd, lengths in DECODE_CASES:
             q = randn((B, 1, H, hd), dtype)
@@ -691,9 +737,11 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     d_inner = z.ssm_expand * z.d_model
     scan_row(B, -(-S // z.chunk), z.ssm_heads, d_inner // z.ssm_heads, z.ssm_state,
              hybrid["prefill"]["ssd_state_scan"])
-    # qwen3-moe-30b-a3b (phase 6): the router at prefill and at decode
+    # qwen3-moe-30b-a3b (phase 6): one prefill layer at group 8; the router
+    # at prefill and at decode
     arch, B, S, max_seq, steps = MOE_RUN
     m = get_config(arch)
+    attention_row(arch, B, S, m.n_heads, m.n_kv_heads, m.hd, moe["prefill"]["flash_attention"])
     gating_row(B * S, m.n_experts, m.top_k, moe["prefill"]["moe_gating"], "prefill")
     gating_row(B, m.n_experts, m.top_k, moe["decode"]["moe_gating"], "decode")
     for r in rows:
@@ -733,9 +781,8 @@ def main() -> int:
             t0 = time.perf_counter()
             so, log = _build.build()
             print(f"  built {so.name} in {time.perf_counter() - t0:.1f} s")
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line or "warning" in line:
-                    print(f"  {line.strip()}")
+            for line in ptxas_summary(log):
+                print(f"  {line}")
 
         with Phase("phase 2: kernels vs plain versions"):
             check_kernels(torch, dev)

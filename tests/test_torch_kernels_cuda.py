@@ -45,6 +45,12 @@ def _assert_close(out, want, dtype):
     (1, 65, 33, 16, 8, 128, False),
     (1, 300, 300, 32, 32, 80, True),      # zamba2's shared block, head dim 80
     (2, 17, 130, 32, 32, 80, True),
+    (1, 150, 211, 32, 32, 80, True),      # head dim 80, ragged Sq and Sk tails
+    (4, 300, 300, 32, 4, 128, True),      # qwen3-moe prefill, group 8
+    # query counts around the 64-row tile; the causal diagonal on a tile
+    # edge (Sk = Sq) and inside a key tile (Sk = Sq + 100)
+    *((1, Sq, Sq + extra, 16, 8, hd, True) for Sq in (1, 63, 64, 65, 129)
+      for extra in (0, 100) for hd in (64, 128)),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, Sq, Sk, H, K, hd,
                                               causal):
@@ -54,6 +60,20 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, Sq, Sk, H, 
     out = ops.attention(q, k, v, causal=causal)
     assert flash_attention.launches == before + 1
     _assert_close(out, ref.attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [80, 128])
+def test_flash_attention_kernel_reads_strided_views(cuda_device, dtype, hd):
+    """q a view with padded heads (rows 16-byte aligned, not contiguous),
+    k and v one layer of a stacked (2,B,S,K,hd) tensor."""
+    B, S, H, K = 2, 140, 8, 4
+    qp, kk, vv = _randn(5, (B, S, H, hd + 8), (2, B, S, K, hd), (2, B, S, K, hd), dtype=dtype,
+                        device=cuda_device)
+    q, k, v = qp[..., :hd], kk[1], vv[1]
+    assert not q.is_contiguous()
+    _assert_close(flash_attention(q, k, v), ref.attention_ref(q, k, v), dtype)
 
 
 @pytest.mark.cuda
