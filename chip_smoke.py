@@ -7,9 +7,11 @@
    each kernel's registers and spill bytes;
 2. holds each kernel against its plain PyTorch version on the card
    (attention in bf16 and f32 at head dims 64, 80 and 128 with ragged
-   lengths, query counts around the 64-row tile and strided views; the
-   MoE router with ties, ids compared exactly; the SSD state scan with and
-   without an initial state);
+   lengths, query counts around the 64-row tile and strided views; decode
+   at GQA groups 1-8, lengths at tile and span edges, one long slot and
+   more (slot, KV head) pairs than SMs; the MoE router with ties, ids
+   compared exactly; the SSD state scan with and without an initial
+   state);
 3. serves qwen3-1.7b at full width and depth (random weights from a seeded
    ``torch.Generator``) through ``ServeEngine``: 12 requests, prompts of
    8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots;
@@ -21,10 +23,10 @@
 6. serves qwen3-moe-30b-a3b (full width, all 48 layers, 56.9 GiB of bf16
    weights drawn on the card) the same way: 4 prompts of 300 tokens, 16
    greedy steps; then its teacher-forced bound at full width and 4 layers;
-7. times each kernel at the serving shapes of phases 3, 5 and 6 (attention
-   at all three GQA groups: 2, 1 and 8) beside its bound, its plain version
-   and one PyTorch library call where one exists, and prints the table as
-   JSON.
+7. times each kernel at the serving shapes of phases 3, 5 and 6 (both
+   attention kernels at all three GQA groups: 2, 1 and 8) beside its
+   bound, its plain version and one PyTorch library call where one exists,
+   and prints the table as JSON.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after.  The last
@@ -61,6 +63,13 @@ PROMPT_MIN, PROMPT_MAX = 8, 1500
 TEACHER_PROMPT, TEACHER_STEPS, TEACHER_SLACK = 300, 16, 1.5
 PROFILE_STEPS, PROFILE_PROMPT = 6, 512
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # as tests/test_kernels.py
+# A decode output row is a weighted mean of ~n value rows, about sqrt(e/n)
+# in size (0.018 at n = 8192), so the elementwise TOL cannot see one wrong
+# 64-key tile of a long slot.  Each (slot, query head) row's error is also
+# held to this share of the row's own size: above the sound kernel's
+# readings, below those of planted faults (scripts/decode_variants.py
+# faults; both in PERF.md).
+DECODE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 # phases 5 and 6: (arch, batch, prompt length, max_seq, greedy decode steps)
 HYBRID_RUN = ("zamba2-2.7b", 4, 700, 1024, 32)
@@ -97,6 +106,13 @@ def max_err(out, want, tol):
     out, want = out.float(), want.float()
     err = (out - want).abs()
     return float(err.max()), bool((err <= tol + tol * want.abs()).all())
+
+
+def row_rel_err(out, want) -> float:
+    """max over rows (every index but the last) of |out - want| / |want|,
+    Euclidean norms."""
+    out, want = out.float().flatten(0, -2), want.float().flatten(0, -2)
+    return float(((out - want).norm(dim=-1) / want.norm(dim=-1)).max())
 
 
 def time_ms(torch, fn, flush, reps: int = 25, warmup: int = 3) -> float:
@@ -207,6 +223,20 @@ DECODE_CASES = [  # (B, Smax, H, K, hd, lengths)
     (2, 512, 16, 8, 128, 300),            # one scalar length for the batch
     (4, 1024, 32, 32, 80, [1, 300, 700, 1024]),   # zamba2, head dim 80, group 1
     (4, 1024, 32, 32, 80, 716),
+    (4, 512, 32, 4, 128, [1, 64, 65, 308]),      # qwen3-moe, group 8
+    (4, 512, 32, 4, 128, 308),
+    (3, 700, 24, 8, 128, [1, 300, 700]),         # group 3 (phi4-mini)
+    (2, 600, 48, 8, 128, [129, 600]),            # group 6 (grok)
+    (3, 1000, 14, 2, 64, [64, 513, 1000]),       # group 7 at head dim 64 (qwen2)
+    # lengths at tile and span edges, 0 (uniform over Smax), past Smax
+    (11, 640, 16, 8, 128, [1, 63, 64, 65, 127, 128, 129, 639, 640, 0, 645]),
+    (11, 640, 32, 32, 80, [1, 63, 64, 65, 127, 128, 129, 639, 640, 0, 645]),
+    (11, 640, 8, 2, 64, [1, 63, 64, 65, 127, 128, 129, 639, 640, 0, 645]),   # split slots
+    (11, 640, 4, 4, 80, [1, 63, 64, 65, 127, 128, 129, 639, 640, 0, 645]),
+    (1, 8192, 16, 8, 128, [8192]),               # one slot: 4 spans, the ring wraps
+    (1, 8192, 16, 8, 128, [5000]),
+    (4, 2048, 16, 8, 128, [1, 2048, 1, 2048]),   # length 1 beside full slots
+    (64, 1024, 16, 8, 128, [1024 - 13 * i for i in range(64)]),  # one block a slot
 ]
 
 GATING_CASES = [  # (T, E, k, tied logits)
@@ -254,12 +284,16 @@ def check_kernels(torch, dev):
             cv = randn((2, B, Smax, K, hd), dtype)[1]
             length = (torch.tensor(lengths, dtype=torch.int32, device=dev)
                       if isinstance(lengths, list) else lengths)
-            err, ok = max_err(flash_decode(q, ck, cv, length),
-                              ref.decode_attention_ref(q, ck, cv, length), tol)
+            out = flash_decode(q, ck, cv, length)
+            want = ref.decode_attention_ref(q, ck, cv, length)
+            err, ok = max_err(out, want, tol)
+            rel, rel_tol = row_rel_err(out, want), DECODE_REL_TOL[dtype_name]
             torch.cuda.synchronize()
             print(f"  flash_decode {dtype_name} B={B} Smax={Smax} H={H} K={K} hd={hd} "
-                  f"lengths={lengths}: max_abs_err={err:.3e} (tol {tol})")
+                  f"lengths={lengths}: max_abs_err={err:.3e} (tol {tol}), "
+                  f"row_rel_err={rel:.3e} (tol {rel_tol})")
             check(ok, f"flash_decode disagrees with decode_attention_ref: {err}")
+            check(rel <= rel_tol, f"flash_decode rows off decode_attention_ref: {rel}")
     check_moe_gating(torch, dev, gen)
     check_ssd_scan(torch, dev, gen)
 
@@ -737,11 +771,13 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     d_inner = z.ssm_expand * z.d_model
     scan_row(B, -(-S // z.chunk), z.ssm_heads, d_inner // z.ssm_heads, z.ssm_state,
              hybrid["prefill"]["ssd_state_scan"])
-    # qwen3-moe-30b-a3b (phase 6): one prefill layer at group 8; the router
-    # at prefill and at decode
+    # qwen3-moe-30b-a3b (phase 6): one prefill and one decode layer at group
+    # 8; the router at prefill and at decode
     arch, B, S, max_seq, steps = MOE_RUN
     m = get_config(arch)
     attention_row(arch, B, S, m.n_heads, m.n_kv_heads, m.hd, moe["prefill"]["flash_attention"])
+    decode_row(arch, B, max_seq, m.n_heads, m.n_kv_heads, m.hd, S + steps // 2,
+               moe["decode"]["flash_decode"])
     gating_row(B * S, m.n_experts, m.top_k, moe["prefill"]["moe_gating"], "prefill")
     gating_row(B, m.n_experts, m.top_k, moe["decode"]["moe_gating"], "decode")
     for r in rows:

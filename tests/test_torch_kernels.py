@@ -17,7 +17,8 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import flash_decode as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_attention
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import flash_decode
+from repro_torch.kernels.decode_attention import (MAX_SPLITS, TILE, decode_splits,
+                                                    flash_decode)
 from repro_torch.kernels.flash_attention import flash_attention
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -89,6 +90,27 @@ def test_decode_ref_per_slot_equals_one_slot_at_a_time():
         one = ref.decode_attention_ref(tq[b:b + 1], tk[b:b + 1], tv[b:b + 1],
                                        int(lengths[b]))
         torch.testing.assert_close(out[b:b + 1], one, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("batch,kv_heads,smax,sms,want", [
+    (8, 8, 2048, 132, 2),       # qwen3-1.7b decode on an H100's 132 SMs: 64 pairs
+    (4, 32, 1024, 132, 1),      # zamba2: 128 pairs fill the SMs alone
+    (4, 4, 512, 132, 4),        # qwen3-moe: 16 pairs, capped at one cluster of 4
+    (1, 8, 8192, 132, 4),
+    (64, 8, 1024, 132, 1),      # more pairs than SMs
+    (1, 1, 1, 132, 1),          # one tile
+    (1, 2, 130, 132, 3),        # three tiles
+    (3, 2, 300, 78, 4),
+])
+def test_decode_splits_cover_every_slot_within_its_tiles(batch, kv_heads, smax, sms, want):
+    """The bf16 kernel's blocks per (slot, KV head): at least one, at most
+    one per tile of Smax and one cluster's worth (MAX_SPLITS), and no more
+    blocks than SMs unless the pairs alone are more.  No length is among
+    the inputs, so scalar and per-slot lengths launch one grid."""
+    splits = decode_splits(batch, kv_heads, smax, sms)
+    assert splits == want
+    assert 1 <= splits <= min(-(-smax // TILE), MAX_SPLITS)
+    assert batch * kv_heads * splits <= max(sms, batch * kv_heads)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
-Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 3e-2 in bf16.
+Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 3e-2 in bf16;
+decode outputs are also held row by row to a share of each row's size, as
+in chip_smoke.py.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ from repro_torch.kernels.moe_gating import moe_gating
 from repro_torch.kernels.ssd_scan import ssd_state_scan
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+DECODE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # as chip_smoke.py
 
 
 @pytest.fixture
@@ -35,6 +38,14 @@ def _randn(seed, *shapes, dtype, device):
 
 def _assert_close(out, want, dtype):
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _assert_rows_close(out, want, dtype):
+    """Each (slot, query head) row within DECODE_REL_TOL of its own size: a
+    decode row is a mean of ~n value rows, far below TOL at long lengths."""
+    out, want = out.float().flatten(0, -2), want.float().flatten(0, -2)
+    rel = (out - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= DECODE_REL_TOL[dtype], float(rel.max())
 
 
 @pytest.mark.cuda
@@ -105,6 +116,68 @@ def test_flash_decode_kernel_at_head_dim_80(cuda_device, dtype, length):
         length = torch.tensor(length, dtype=torch.int32, device=cuda_device)
     out = ops.decode_attention(q, ck, cv, length)
     _assert_close(out, ref.decode_attention_ref(q, ck, cv, length), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Smax,H,K,hd,length", [
+    # qwen3-moe decode, group 8: one tile, a tile edge, and the served length
+    (4, 512, 32, 4, 128, [1, 64, 65, 308]),
+    (4, 512, 32, 4, 128, 308),
+    # groups 3 (phi4-mini), 6 (grok) and 7 at head dim 64 (qwen2): rows past
+    # the group in the 8 query rows of the tensor-core tile
+    (3, 700, 24, 8, 128, [1, 300, 700]),
+    (2, 600, 48, 8, 128, [129, 600]),
+    (3, 1000, 14, 2, 64, [64, 513, 1000]),
+    # lengths at tile and span edges, 0 (uniform over Smax) and past Smax
+    (11, 640, 16, 8, 128, [1, 63, 64, 65, 127, 128, 129, 639, 640, 0, 645]),
+    (11, 640, 32, 32, 80, [1, 63, 64, 65, 127, 128, 129, 639, 640, 0, 645]),
+    # the same with few enough KV heads that each slot is split over blocks
+    (11, 640, 8, 2, 64, [1, 63, 64, 65, 127, 128, 129, 639, 640, 0, 645]),
+    (11, 640, 4, 4, 80, [1, 63, 64, 65, 127, 128, 129, 639, 640, 0, 645]),
+    # one slot over a full cluster of 4 blocks, 32 tiles each: the K/V ring
+    # wraps many times
+    (1, 8192, 16, 8, 128, [8192]),
+    (1, 8192, 16, 8, 128, [5000]),
+    # length-1 slots beside full-length ones
+    (4, 2048, 16, 8, 128, [1, 2048, 1, 2048]),
+    # more (slot, KV head) pairs than SMs: one block walks a whole slot and
+    # writes the output itself
+    (64, 1024, 16, 8, 128, [1024 - 13 * i for i in range(64)]),
+])
+def test_flash_decode_kernel_at_split_and_ring_edges(cuda_device, dtype, B, Smax, H, K, hd,
+                                                     length):
+    """Cases that move the bf16 kernel's spans and ring: one layer of a
+    stacked cache, read in place."""
+    q, ck, cv = _randn(7, (B, 1, H, hd), (2, B, Smax, K, hd), (2, B, Smax, K, hd),
+                       dtype=dtype, device=cuda_device)
+    ck, cv = ck[1], cv[1]
+    if isinstance(length, list):
+        length = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    before = flash_decode.launches
+    out = ops.decode_attention(q, ck, cv, length)
+    assert flash_decode.launches == before + 1
+    want = ref.decode_attention_ref(q, ck, cv, length)
+    _assert_close(out, want, dtype)
+    _assert_rows_close(out, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Smax,H,K,hd,length", [
+    (4, 512, 32, 4, 128, 308),     # qwen3-moe: 4 blocks a pair
+    (4, 1024, 32, 32, 80, 716),    # zamba2: one block a pair
+    (8, 2048, 16, 8, 128, 1293),
+])
+def test_flash_decode_scalar_length_equals_per_slot_lengths(cuda_device, dtype, B, Smax, H,
+                                                            K, hd, length):
+    """One scalar length (stride 0) and a (B,) tensor of it launch the same
+    grid and give the same bits."""
+    q, ck, cv = _randn(8, (B, 1, H, hd), (B, Smax, K, hd), (B, Smax, K, hd), dtype=dtype,
+                       device=cuda_device)
+    scalar = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    per_slot = torch.full((B,), length, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(flash_decode(q, ck, cv, scalar), flash_decode(q, ck, cv, per_slot))
 
 
 def _gating_logits(T, E, seed, tied, device):
