@@ -9,12 +9,15 @@
    (attention in bf16 and f32 at head dims 64, 80 and 128 with ragged
    lengths, query counts around the 64-row tile and strided views; decode
    at GQA groups 1-8, lengths at tile and span edges, one long slot and
-   more (slot, KV head) pairs than SMs; the MoE router with ties, ids
-   compared exactly; the SSD state scan with and without an initial
+   more (slot, KV head) pairs than SMs; the MoE router on logits with
+   ties, ids compared exactly; the fused router (product, softmax, top-k)
+   at the qwen3-moe shapes, ids compared up to near ties and exactly where
+   router columns repeat; the SSD state scan with and without an initial
    state);
 3. serves qwen3-1.7b at full width and depth (random weights from a seeded
    ``torch.Generator``) through ``ServeEngine``: 12 requests, prompts of
-   8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots;
+   8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots; then one
+   prompt of exactly ``max_seq`` tokens, which must finish at prefill;
 4. runs one prompt teacher-forced through the kernel path and the plain path
    and bounds the logit gap;
 5. serves zamba2-2.7b (hybrid, full width and depth) through
@@ -22,14 +25,19 @@
    greedy steps; then its teacher-forced bound;
 6. serves qwen3-moe-30b-a3b (full width, all 48 layers, 56.9 GiB of bf16
    weights drawn on the card) the same way: 4 prompts of 300 tokens, 16
-   greedy steps; then its teacher-forced bound at full width and 4 layers;
+   greedy steps, and profiles the decode step once more with the router
+   chain the port ran before ``moe_router`` (cast, cuBLAS product,
+   ``moe_gating``, softmax); then its teacher-forced bound at full width
+   and 4 layers;
 7. times each kernel at the serving shapes of phases 3, 5 and 6 (both
    attention kernels at all three GQA groups: 2, 1 and 8) beside its
    bound, its plain version and one PyTorch library call where one exists,
-   and prints the table as JSON.
+   with L2 flushed by writing and by reading 256 MB, and prints the table
+   as JSON.
 
 Each serving phase sets every kernel's launch count to 0 before its
-prefill and before its decode steps, and checks the counts after.  The last
+prefill and before its decode steps, and checks the counts after; its
+profiled decode steps give each kernel's device time per served step.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero and
 prints no result.
@@ -70,6 +78,14 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # as tests/test_kernels.py
 # readings, below those of planted faults (scripts/decode_variants.py
 # faults; both in PERF.md).
 DECODE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# moe_router sums its f32 logits over D in another order than cuBLAS, so at
+# D = 2048 its logits differ from the plain version's by ~2e-6, and where two
+# probabilities are that close the top-k may pick differently.  At every
+# rank the kernel's expert must have a plain probability within this of the
+# plain choice's: at least 10x the largest |d log p| phase 2 reads (|d p| <=
+# p |d log p| <= |d log p|; phase 2 checks the 10x), far below the planted
+# faults' (scripts/router_variants.py faults; both in PERF.md).
+ROUTER_TIE_DELTA = 1e-4
 
 # phases 5 and 6: (arch, batch, prompt length, max_seq, greedy decode steps)
 HYBRID_RUN = ("zamba2-2.7b", 4, 700, 1024, 32)
@@ -117,15 +133,16 @@ def row_rel_err(out, want) -> float:
 
 def time_ms(torch, fn, flush, reps: int = 25, warmup: int = 3) -> float:
     """Median device time of one call, CUDA events around each call.  The
-    L2 cache is flushed before every call, as the serving loop finds it
-    (each layer's weights and cache slice evict the last layer's), and the
-    stream is held busy while the host enqueues the call, so that the
-    events time the device and not the host's launch overhead."""
+    L2 cache is flushed before every call by ``flush()``, as the serving
+    loop finds it (each layer's weights and cache slice evict the last
+    layer's), and the stream is held busy while the host enqueues the call,
+    so that the events time the device and not the host's launch
+    overhead."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush()
         torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -141,10 +158,42 @@ def kernels():
     """name -> wrapper of every kernel; each wrapper counts its launches."""
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.moe_gating import moe_gating
+    from repro_torch.kernels.moe_gating import moe_gating, moe_router
     from repro_torch.kernels.ssd_scan import ssd_state_scan
     return {"flash_attention": flash_attention, "flash_decode": flash_decode,
-            "moe_gating": moe_gating, "ssd_state_scan": ssd_state_scan}
+            "moe_gating": moe_gating, "moe_router": moe_router,
+            "ssd_state_scan": ssd_state_scan}
+
+
+# wrapper -> a part of the name of every CUDA kernel it launches, as the
+# profiler reports them
+KERNEL_SYMBOLS = {
+    "flash_attention": ("attention_bf16_kernel", "flash_attention_kernel"),
+    "flash_decode": ("flash_decode_",),
+    "moe_gating": ("moe_gating_kernel",),
+    "moe_router": ("moe_router_kernel", "moe_router_decode_kernel"),
+    "ssd_state_scan": ("ssd_scan_kernel",),
+}
+
+
+def router_chain(x, router, k):
+    """The router as the port ran it before ``moe_router``: x cast to f32,
+    the cuBLAS f32 product, the logits-input ``moe_gating`` kernel and the
+    softmax of the load-balance statistics, four launches."""
+    import torch
+    from repro_torch.kernels.moe_gating import moe_gating
+    logits = x.float() @ router
+    w, ids = moe_gating(logits, k)
+    return w, ids, torch.softmax(logits, dim=-1)
+
+
+def in_span(torch, fn, name):
+    """``fn`` run inside a profiler range ``name``: the device time of the
+    kernels launched in it is read off that range."""
+    def spanned(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+    return spanned
 
 
 def reset_launches() -> None:
@@ -247,6 +296,18 @@ GATING_CASES = [  # (T, E, k, tied logits)
     (1200, 128, 8, True),                 # rows rounded to one decimal, one constant row
 ]
 
+ROUTER_CASES = [  # (T, D, E, k, x dtype, router columns repeated 8 times)
+    (4, 2048, 128, 8, "bfloat16", False),      # qwen3-moe decode, 4 slots
+    (1200, 2048, 128, 8, "bfloat16", False),   # qwen3-moe prefill, 4 x 300 tokens
+    (4, 2048, 128, 8, "float32", False),
+    (1200, 2048, 128, 8, "float32", False),
+    (300, 2048, 64, 6, "bfloat16", False),
+    (17, 6144, 8, 2, "bfloat16", False),       # grok-1's router, ragged T
+    (33, 136, 256, 32, "float32", False),      # the widest E and k, a short last chunk
+    (4, 2048, 128, 8, "bfloat16", True),       # exact ties: ids equal
+    (1200, 2048, 128, 8, "bfloat16", True),
+]
+
 SCAN_CASES = [(1, 3, 64, 80, 64), (2, 5, 4, 16, 16)]   # (B, C, H, P, N)
 
 
@@ -295,6 +356,7 @@ def check_kernels(torch, dev):
             check(ok, f"flash_decode disagrees with decode_attention_ref: {err}")
             check(rel <= rel_tol, f"flash_decode rows off decode_attention_ref: {rel}")
     check_moe_gating(torch, dev, gen)
+    check_moe_router(torch, dev, gen)
     check_ssd_scan(torch, dev, gen)
 
 
@@ -320,6 +382,65 @@ def check_moe_gating(torch, dev, gen):
               f"weights max_abs_err={err:.3e} (tol {TOL['float32']})")
         check(same, f"moe_gating ids differ from moe_gating_ref at T={T} E={E} k={k}")
         check(ok, f"moe_gating weights disagree with moe_gating_ref: {err}")
+
+
+def router_inputs(torch, gen, dev, T, D, E, dtype, dup):
+    """x (T,D) and the f32 router (D,E) at the model's scale (logits of about
+    unit size); ``dup`` repeats E//8 distinct columns 8 times, so both paths
+    see bitwise-equal logits within a group."""
+    x = torch.randn((T, D), generator=gen, device=dev).to(getattr(torch, dtype))
+    router = torch.randn((D, E if not dup else E // 8), generator=gen, device=dev) * D ** -0.5
+    if dup:
+        router = router.repeat_interleave(8, dim=1)
+    return x, router.contiguous()
+
+
+def router_agreement(out, want):
+    """(rows whose ids differ, largest |plain probability of the kernel's
+    expert - plain probability of the plain choice| over every rank, largest
+    |d log p|), the last standing for |d logit|: a logit's error less its
+    row's log-sum-exp error."""
+    (w, ids, probs), (want_w, want_ids, want_probs) = out, want
+    gap = (want_probs.gather(1, ids.long()) - want_probs.gather(1, want_ids.long())).abs()
+    dlogp = (probs.log() - want_probs.log()).abs()
+    return int((ids != want_ids).any(dim=1).sum()), float(gap.max()), float(dlogp.max())
+
+
+def check_router_output(torch, out, want, E, exact_ids):
+    """The checks of phase 2 on one ``moe_router`` call against its plain
+    version; returns the readings it prints."""
+    (w, ids, probs), (want_w, want_ids, want_probs) = out, want
+    err_w, ok_w = max_err(w, want_w, TOL["float32"])
+    err_p, ok_p = max_err(probs, want_probs, TOL["float32"])
+    srt = ids.sort(dim=1).values
+    well_formed = bool((ids >= 0).all() and (ids < E).all()
+                       and (srt[:, 1:] > srt[:, :-1]).all())
+    rows, gap, dlogp = router_agreement(out, want)
+    ok_ids = torch.equal(ids, want_ids) if exact_ids else gap <= ROUTER_TIE_DELTA
+    return {"ok": ok_w and ok_p and well_formed and ok_ids, "err_w": err_w, "err_p": err_p,
+            "rows_differ": rows, "gap": gap, "dlogp": dlogp}
+
+
+def check_moe_router(torch, dev, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gating import moe_router
+    worst = 0.0
+    for T, D, E, k, dtype, dup in ROUTER_CASES:
+        x, router = router_inputs(torch, gen, dev, T, D, E, dtype, dup)
+        r = check_router_output(torch, moe_router(x, router, k),
+                                ref.moe_router_ref(x, router, k), E, exact_ids=dup)
+        torch.cuda.synchronize()
+        worst = max(worst, r["dlogp"])
+        print(f"  moe_router T={T} D={D} E={E} k={k} x {dtype}"
+              f"{' repeated columns' if dup else ''}: rows with other ids {r['rows_differ']}"
+              f", max |d log p| {r['dlogp']:.3e}, max prob gap at a rank {r['gap']:.3e} "
+              f"({'ids equal required' if dup else f'delta {ROUTER_TIE_DELTA}'}), "
+              f"max_abs_err weights {r['err_w']:.3e} probs {r['err_p']:.3e} "
+              f"(tol {TOL['float32']})")
+        check(r["ok"], f"moe_router disagrees with moe_router_ref at T={T} D={D} E={E}: {r}")
+    print(f"  moe_router: largest |d log p| {worst:.3e}; delta {ROUTER_TIE_DELTA} is "
+          f"{ROUTER_TIE_DELTA / max(worst, 1e-30):.1f}x it")
+    check(ROUTER_TIE_DELTA >= 10 * worst, "moe_router's logits moved by more than delta / 10")
 
 
 def check_ssd_scan(torch, dev, gen):
@@ -373,7 +494,7 @@ def serve(torch, np, dev, cfg, params):
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out), "token out of range")
     for name in ("flash_attention", "flash_decode"):
         check(launches[name] > 0, f"{name} was not launched on the serving path")
-    check(launches["moe_gating"] == launches["ssd_state_scan"] == 0,
+    check(launches["moe_gating"] == launches["moe_router"] == launches["ssd_state_scan"] == 0,
           "a MoE or SSD kernel launched on the dense path")
     check(launches["flash_attention"] == N_REQUESTS * cfg.n_layers,
           f"flash_attention launches {launches['flash_attention']} != "
@@ -394,8 +515,9 @@ def serve(torch, np, dev, cfg, params):
           f"decode_s={eng.decode_s:.3f} decode_tok_s={decode_tokens / eng.decode_s:.1f} "
           f"ms_per_decode_step={1e3 * eng.decode_s / eng.decode_steps:.2f}")
     print(f"  launches: {launches}")
-    profile_decode(torch, np, cfg, eng)
-    return launches, [int(n) for n in lengths]
+    served_us = profile_decode(torch, np, cfg, eng)
+    prompt_fills_cache(torch, np, cfg, eng)
+    return launches, [int(n) for n in lengths], served_us
 
 
 def profile_decode(torch, np, cfg, eng):
@@ -405,15 +527,46 @@ def profile_decode(torch, np, cfg, eng):
         eng.submit(rng.integers(0, cfg.vocab, PROFILE_PROMPT).tolist(), max_new=16)
     eng._admit()
     eng.step()
-    profile_steps(torch, eng.step, f"decode step (8 slots, ~{PROFILE_PROMPT + 8} positions)")
+    served_us = profile_steps(torch, eng.step,
+                              f"decode step (8 slots, ~{PROFILE_PROMPT + 8} positions)")
     eng.run()
+    return served_us
 
 
-def profile_steps(torch, step, label):
+def prompt_fills_cache(torch, np, cfg, eng):
+    """A prompt of exactly max_seq tokens leaves no cache position for the
+    next token's key: it must finish at prefill with one token, and the
+    device must stay usable (an out-of-range cache write would be a
+    device-side assert, which ends the process's CUDA context)."""
+    rng = np.random.default_rng(4)
+    steps = eng.decode_steps
+    req = eng.submit(rng.integers(0, cfg.vocab, MAX_SEQ).tolist(), max_new=MAX_NEW)
+    done = eng.run()
+    torch.cuda.synchronize()
+    check(done == [req] and req.done and len(req.out) == 1 and eng.decode_steps == steps,
+          f"a {MAX_SEQ}-token prompt gave {len(req.out)} tokens over "
+          f"{eng.decode_steps - steps} decode steps")
+    check(all(s is None for s in eng.slots) and int(eng.cache["index"].abs().sum()) == 0,
+          "the max_seq prompt left its slot busy")
+    after = eng.submit([1, 2, 3], max_new=2)
+    eng.run()
+    torch.cuda.synchronize()
+    check(after.done and len(after.out) == 2, "the engine stopped serving after it")
+    print(f"  a {MAX_SEQ}-token prompt (max_seq): finished at prefill with 1 token, "
+          f"no decode step; the next request served")
+
+
+def profile_steps(torch, step, label, spans=()):
     """Host time per call of ``step`` over PROFILE_STEPS calls, then device
     time per call by kernel from a torch.profiler window over as many more
     (sum of kernel durations; one stream, so they do not overlap), and the
-    device's idle share of the unprofiled call."""
+    device's idle share of the unprofiled call.  Returns the host and the
+    device busy ms per call ("host_ms", "busy_ms"), the device us per call
+    of each wrapper's kernels (KERNEL_SYMBOLS) and of each profiler
+    range named in ``spans``: the kernels that ran inside the range's
+    device-side interval (first to last kernel launched in it; one stream,
+    so no other kernel runs there)."""
+    import bisect
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -423,7 +576,7 @@ def profile_steps(torch, step, label):
         step()
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
-    by_name = {}
+    by_name, ranges, ran = {}, {name: [] for name in spans}, []
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -432,10 +585,26 @@ def profile_steps(torch, step, label):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type != DeviceType.CUDA:
+                continue
+            interval = (e.time_range.start, e.time_range.end)
+            if e.name in ranges:      # a range's device side, not a kernel
+                ranges[e.name].append(interval)
+            else:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                ran.append(interval)
     except RuntimeError as exc:       # a diagnostic: the profiler may be unavailable
         print(f"  torch.profiler failed ({exc}); device time not measured")
+    span_us = {}
+    for name, intervals in ranges.items():
+        intervals.sort()
+        starts = [a for a, _ in intervals]
+        inside = 0.0
+        for start, end in ran:
+            i = bisect.bisect_right(starts, start) - 1
+            if i >= 0 and end <= intervals[i][1]:
+                inside += end - start
+        span_us[name] = inside / PROFILE_STEPS
     busy_ms = sum(by_name.values())
     busy_step = busy_ms / PROFILE_STEPS
     print(f"  {label}: {step_ms:.2f} ms host clock; device busy {busy_step:.2f} ms/step, "
@@ -444,6 +613,15 @@ def profile_steps(torch, step, label):
           f"  {label}: {step_ms:.2f} ms host clock; profiler saw no device time")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {ms / PROFILE_STEPS:8.3f} ms/step  {name[:100]}")
+    kernel_us = {w: 1e3 / PROFILE_STEPS * sum(ms for name, ms in by_name.items()
+                                              if any(sym in name for sym in syms))
+                 for w, syms in KERNEL_SYMBOLS.items()}
+    print(f"  repo kernels, device us per step: "
+          f"{ {w: round(us, 2) for w, us in kernel_us.items()} }")
+    for name, us in span_us.items():
+        print(f"  range {name!r}: device {us:.2f} us per step" if us else
+              f"  range {name!r}: device time not measured (no kernel ran inside it)")
+    return {**kernel_us, **span_us, "host_ms": step_ms, "busy_ms": busy_step}
 
 
 # ---------------------------------------------------------------------------
@@ -452,11 +630,15 @@ def profile_steps(torch, step, label):
 # ---------------------------------------------------------------------------
 
 def serve_steps(torch, np, dev, cfg, params, batch, prompt_len, max_seq, steps,
-                want_prefill, want_step):
+                want_prefill, want_step, routers=False):
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
     ``steps`` greedy decode steps.  ``want_prefill`` / ``want_step`` give
-    each kernel's expected launches per prefill / per decode step.  Returns
-    the launches {"prefill": ..., "decode": ...}."""
+    each kernel's expected launches per prefill / per decode step.  With
+    ``routers`` the profiled step runs the router in a profiler range, once
+    through ``moe_router`` and once through ``router_chain``.  Returns the
+    launches {"prefill": ..., "decode": ...}, ms per decode step and the
+    device us per step of each kernel ("served") and of each router
+    ("router")."""
     from repro_torch.train.step import make_prefill, make_serve_step
     prefill, serve_step = make_prefill(cfg), make_serve_step(cfg)
 
@@ -518,10 +700,25 @@ def serve_steps(torch, np, dev, cfg, params, batch, prompt_len, max_seq, steps,
         logits, cache = serve_step(params, cache, nxt)
         nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
 
-    profile_steps(torch, one_step, f"decode step ({batch} slots, ~{prompt_len + steps} "
-                                   f"positions)")
+    label = f"decode step ({batch} slots, ~{prompt_len + steps} positions)"
+    if not routers:
+        served = profile_steps(torch, one_step, label)
+        del cache, logits
+        return {"prefill": at_prefill, "decode": at_decode, "ms_per_step": ms_step,
+                "served": served}
+    from repro_torch.kernels import ops
+    windows = {}
+    for name, fn in (("moe_router", ops.moe_router), ("router_chain", router_chain)):
+        with mock.patch.object(ops, "moe_router", in_span(torch, fn, "router")):
+            print(f"  router through {name}:")
+            windows[name] = profile_steps(torch, one_step, label, spans=("router",))
+    router_us = {name: us.pop("router") for name, us in windows.items()}
+    served = windows["moe_router"]
+    print(f"  router device us per decode step: moe_router {router_us['moe_router']:.2f}, "
+          f"the chain it replaced {router_us['router_chain']:.2f}")
     del cache, logits
-    return {"prefill": at_prefill, "decode": at_decode, "ms_per_step": ms_step}
+    return {"prefill": at_prefill, "decode": at_decode, "ms_per_step": ms_step,
+            "served": served, "router": router_us}
 
 
 def serve_hybrid(torch, np, dev):
@@ -562,8 +759,8 @@ def serve_moe(torch, np, dev):
           f"init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     run = serve_steps(torch, np, dev, cfg, params, B, S, max_seq, steps,
-                      {"flash_attention": cfg.n_layers, "moe_gating": cfg.n_layers},
-                      {"flash_decode": cfg.n_layers, "moe_gating": cfg.n_layers})
+                      {"flash_attention": cfg.n_layers, "moe_router": cfg.n_layers},
+                      {"flash_decode": cfg.n_layers, "moe_router": cfg.n_layers}, routers=True)
     floor_ms = expert_bytes / PEAK_BYTES * 1e3
     print(f"  every decode step multiplies all {cfg.n_experts} experts of every layer: "
           f"{expert_bytes / 1e9:.2f} GB of expert weights, at least {floor_ms:.2f} ms at "
@@ -611,7 +808,8 @@ def teacher_forced(torch, np, cfg, params):
 
     plain_fns = {"attention": ref.attention_ref,
                  "decode_attention": ref.decode_attention_ref,
-                 "moe_gating": ref.moe_gating_ref, "ssd_state_scan": ref.ssd_state_scan_ref}
+                 "moe_gating": ref.moe_gating_ref, "moe_router": ref.moe_router_ref,
+                 "ssd_state_scan": ref.ssd_state_scan_ref}
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, TEACHER_PROMPT).tolist()
     reset_launches()
     kern, fed = run_path(torch, cfg, params, prompt)
@@ -652,19 +850,24 @@ def teacher_forced(torch, np, cfg, params):
 
 def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     """One row per kernel and serving shape.  ``dense``, ``hybrid`` and
-    ``moe`` hold the launches of phases 3, 5 and 6."""
+    ``moe`` hold the launches and the served decode steps' device us per
+    kernel of phases 3, 5 and 6.  Each kernel is timed twice: L2 flushed by
+    writing 256 MB ("ms", which leaves it full of dirty lines), and by
+    reading them ("ms_read_flush", clean lines, as a served layer finds the
+    last layer's weights)."""
     import torch.nn.functional as F
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.moe_gating import moe_gating
+    from repro_torch.kernels.moe_gating import moe_gating, moe_router
     from repro_torch.kernels.ssd_scan import ssd_state_scan
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     bf16 = torch.bfloat16
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)   # 256 MB > L2
+    buf = torch.empty(64 << 20, dtype=torch.float32, device=dev)   # 256 MB > L2
+    flush, read_flush = buf.zero_, buf.sum
     rows = []
 
     def randn(shape, dtype=bf16):
@@ -678,7 +881,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             return None
 
     def add(name, source, replaces, shape, launches, kernel, plain, flops, nbytes, dtype,
-            library, tol, compare=None):
+            library, tol, compare=None, served=None, **extra):
         out, want = kernel(), plain()
         if compare is None:
             err, ok = max_err(out, want, tol)
@@ -691,8 +894,10 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "shape": shape, "launches": launches,
             "max_abs_err": err, "ms": time_ms(torch, kernel, flush),
+            "ms_read_flush": time_ms(torch, kernel, read_flush),
             "plain_ms": time_ms(torch, plain, flush), "bound_ms": bound, "bound_by": by,
             "library_ms": None if library is None else library_ms(library),
+            "served_us_per_step": served, **extra,
         })
 
     def attention_row(model, B, S, H, K, hd, launches):
@@ -706,7 +911,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             "bfloat16", lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), TOL["bfloat16"])
 
-    def decode_row(model, B, Smax, H, K, hd, lens, launches):
+    def decode_row(model, B, Smax, H, K, hd, lens, launches, served):
         q = randn((B, 1, H, hd))
         ck, cv = randn((2, B, Smax, K, hd))[1], randn((2, B, Smax, K, hd))[1]
         if isinstance(lens, list):
@@ -724,7 +929,27 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             4.0 * H * hd * sum(lens), 2.0 * (2 * K * hd * sum(lens) + 2 * q.numel())
             + 4 * length.numel(), "bfloat16",
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                   enable_gqa=True), TOL["bfloat16"])
+                                                   enable_gqa=True), TOL["bfloat16"],
+            served=served)
+
+    def router_row(T, D, E, k, launches, phase, served):
+        x = randn((T, D))
+        router = torch.randn((D, E), generator=gen, device=dev) * D ** -0.5
+
+        def compare(out, want):
+            r = check_router_output(torch, out, want, E, exact_ids=False)
+            return max(r["err_w"], r["err_p"]), r["ok"]
+
+        def chain():
+            return router_chain(x, router, k)
+
+        add("moe_router", "moe_gating.cu", "src/repro/kernels/moe_gating.py:55",
+            f"qwen3-moe-30b-a3b {phase} router: T={T} D={D} E={E} k={k} x bf16, router f32",
+            launches, lambda: moe_router(x, router, k), lambda: ref.moe_router_ref(x, router, k),
+            2.0 * T * D * E + T * E * (4.0 + 2 * k),
+            2.0 * T * D + 4.0 * D * E + 8.0 * T * k + 4.0 * T * E, "float32", None, None,
+            compare, served, chain_ms=time_ms(torch, chain, flush),
+            chain_ms_read_flush=time_ms(torch, chain, read_flush))
 
     def gating_row(T, E, k, launches, phase):
         x = torch.randn((T, E), generator=gen, device=dev)
@@ -734,7 +959,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             return err, ok and bool(torch.equal(out[1], want[1]))
 
         add("moe_gating", "moe_gating.cu", "src/repro/kernels/moe_gating.py:55",
-            f"qwen3-moe-30b-a3b {phase} router: T={T} E={E} k={k} f32", launches,
+            f"qwen3-moe-30b-a3b {phase} router on f32 logits: T={T} E={E} k={k}", launches,
             lambda: moe_gating(x, k), lambda: ref.moe_gating_ref(x, k),
             T * E * (4.0 + 2 * k), 4.0 * T * E + 8.0 * T * k, "float32", None, None, compare)
 
@@ -757,9 +982,10 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     # 32 new tokens
     q17 = get_config(SERVE_ARCH)
     attention_row(SERVE_ARCH, 1, 1024, q17.n_heads, q17.n_kv_heads, q17.hd,
-                  dense["flash_attention"])
+                  dense["launches"]["flash_attention"])
     decode_row(SERVE_ARCH, MAX_BATCH, MAX_SEQ, q17.n_heads, q17.n_kv_heads, q17.hd,
-               [n + MAX_NEW // 2 for n in prompt_lengths[:MAX_BATCH]], dense["flash_decode"])
+               [n + MAX_NEW // 2 for n in prompt_lengths[:MAX_BATCH]],
+               dense["launches"]["flash_decode"], dense["served"]["flash_decode"])
     # zamba2-2.7b (phase 5): its shared block at head dim 80; the state scan
     # of one Mamba2 block's prefill
     arch, B, S, max_seq, steps = HYBRID_RUN
@@ -767,7 +993,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     attention_row(arch, B, S, z.n_heads, z.n_kv_heads, z.hd,
                   hybrid["prefill"]["flash_attention"])
     decode_row(arch, B, max_seq, z.n_heads, z.n_kv_heads, z.hd, S + steps // 2,
-               hybrid["decode"]["flash_decode"])
+               hybrid["decode"]["flash_decode"], hybrid["served"]["flash_decode"])
     d_inner = z.ssm_expand * z.d_model
     scan_row(B, -(-S // z.chunk), z.ssm_heads, d_inner // z.ssm_heads, z.ssm_state,
              hybrid["prefill"]["ssd_state_scan"])
@@ -777,13 +1003,21 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     m = get_config(arch)
     attention_row(arch, B, S, m.n_heads, m.n_kv_heads, m.hd, moe["prefill"]["flash_attention"])
     decode_row(arch, B, max_seq, m.n_heads, m.n_kv_heads, m.hd, S + steps // 2,
-               moe["decode"]["flash_decode"])
+               moe["decode"]["flash_decode"], moe["served"]["flash_decode"])
+    router_row(B * S, m.d_model, m.n_experts, m.top_k, moe["prefill"]["moe_router"],
+               "prefill", None)
+    router_row(B, m.d_model, m.n_experts, m.top_k, moe["decode"]["moe_router"], "decode",
+               moe["served"]["moe_router"])
     gating_row(B * S, m.n_experts, m.top_k, moe["prefill"]["moe_gating"], "prefill")
     gating_row(B, m.n_experts, m.top_k, moe["decode"]["moe_gating"], "decode")
     for r in rows:
-        print(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms by "
-              f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
-              f"{r['launches']} launches) at {r['shape']}")
+        chain = (f", the chain it replaced {r['chain_ms']:.4f} / "
+                 f"{r['chain_ms_read_flush']:.4f} ms" if "chain_ms" in r else "")
+        print(f"  {r['name']}: {r['ms']:.4f} ms, {r['ms_read_flush']:.4f} ms under a read "
+              f"flush (bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{chain}, "
+              f"{r['launches']} launches, served {r['served_us_per_step']} us per decode "
+              f"step) at {r['shape']}")
     return rows
 
 
@@ -831,7 +1065,7 @@ def main() -> int:
             print(f"  {param_count(cfg) / 1e9:.3f} B params, {cfg.n_layers} layers, "
                   f"d_model {cfg.d_model}, init {time.perf_counter() - t0:.1f} s")
             torch.cuda.reset_peak_memory_stats()
-            launches, prompt_lengths = serve(torch, np, dev, cfg, params)
+            launches, prompt_lengths, served = serve(torch, np, dev, cfg, params)
             print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
         with Phase("phase 4: teacher-forced logits, kernel path vs plain path"):
@@ -848,7 +1082,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         with Phase("phase 7: kernel times at serving shapes"):
-            rows = kernel_table(torch, dev, launches, prompt_lengths, hybrid, moe)
+            rows = kernel_table(torch, dev, {"launches": launches, "served": served},
+                                prompt_lengths, hybrid, moe)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

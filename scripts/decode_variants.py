@@ -281,7 +281,8 @@ def splits(torch, np, dev) -> None:
         times = {}
         for label, setup in setups.items():
             setup()
-            times[label] = smoke.time_ms(torch, lambda: flash_decode(q, ck, cv, length), flush)
+            times[label] = smoke.time_ms(torch, lambda: flash_decode(q, ck, cv, length),
+                                         flush.zero_)
         decode_attention.decode_splits = rule
         print(f"  {name} phase-7 shape B={B} Smax={Smax} H={H} K={K} hd={hd}: "
               + ", ".join(f"{label} {1e3 * ms:.2f} us" for label, ms in times.items())

@@ -95,6 +95,8 @@ def library() -> ctypes.CDLL:
         lib.flash_decode_fwd.restype = i32
         lib.moe_gating_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 4 + [ptr]
         lib.moe_gating_fwd.restype = i32
+        lib.moe_router_fwd.argtypes = [ptr, i32] + [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.moe_router_fwd.restype = i32
         lib.ssd_scan_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
         lib.ssd_scan_fwd.restype = i32
         _lib = lib

@@ -53,6 +53,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
+// TMA bulk copy of `bytes` contiguous bytes from global src to shared memory
+// at dst (both 16-byte aligned, bytes a multiple of 16); completion is
+// counted on the mbarrier bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units.  For a K-major operand the
 // stride offset is the distance between groups of 8 rows (1024 bytes) and

@@ -1,10 +1,17 @@
-"""Wrapper of the CUDA MoE router kernel (``csrc/moe_gating.cu``).
+"""Wrappers of the CUDA MoE router kernels (``csrc/moe_gating.cu``).
 
-It replaces ``repro/kernels/moe_gating.py::moe_gating`` (Pallas TPU): row
-softmax in f32, top-k with ties to the lowest expert index, renormalised.
-It takes any number of tokens (the Pallas kernel asserts T % 256 == 0 past
-256 tokens), up to 256 experts and k <= 32.  It runs only on CUDA tensors;
-``ops.moe_gating`` sends CPU tensors to the plain version.
+``moe_gating`` replaces ``repro/kernels/moe_gating.py::moe_gating`` (Pallas
+TPU): logits in, row softmax in f32, top-k with ties to the lowest expert
+index, renormalised.  It takes any number of tokens (the Pallas kernel
+asserts T % 256 == 0 past 256 tokens), up to 256 experts and k <= 32.
+
+``moe_router`` replaces the same kernel with the router product in front of
+it (``repro/models/moe.py:106``) and the softmax of the load-balance
+statistics behind it: x and the f32 router in, weights, ids and the
+probabilities out of one launch, the logits summed in f32.
+
+Both run only on CUDA tensors; ``ops.moe_gating`` and ``ops.moe_router``
+send CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
@@ -14,11 +21,16 @@ from typing import Tuple
 import torch
 
 from ._build import library
+from .decode_attention import _sms
 
-__all__ = ["moe_gating", "MAX_EXPERTS", "MAX_K"]
+__all__ = ["moe_gating", "moe_router", "router_plan", "MAX_EXPERTS", "MAX_K", "MAX_D"]
 
 MAX_EXPERTS = 256   # eight register values per lane of the row's warp
 MAX_K = 32          # lane j keeps the j-th winner
+ROUTER_CHUNK = 32   # router rows per shared-memory stage (csrc KC)
+MAX_CLUSTER = 16    # blocks splitting D (more than 8: a non-portable cluster)
+DECODE_TOKENS = 8   # tokens the decode kernel takes (csrc DECODE_ROWS)
+MAX_D = 8192        # the tile kernel's x slab, 80 rows of D/16 f32, fits
 
 
 def moe_gating(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -30,10 +42,7 @@ def moe_gating(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
         raise ValueError(f"logits must be contiguous (T,E) f32, got {tuple(logits.shape)} "
                          f"{logits.dtype}")
     T, E = logits.shape
-    if T < 1 or not 1 <= E <= MAX_EXPERTS:
-        raise ValueError(f"need T >= 1 and 1 <= E <= {MAX_EXPERTS} experts, got T={T} E={E}")
-    if not 1 <= k <= min(E, MAX_K):
-        raise ValueError(f"need 1 <= k <= min(E, {MAX_K}), got k={k} for E={E}")
+    _check_experts(T, E, k)
     w = torch.empty((T, k), dtype=torch.float32, device=logits.device)
     ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)
     err = library().moe_gating_fwd(
@@ -46,3 +55,70 @@ def moe_gating(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
 
 
 moe_gating.launches = 0   # kernel launches since the count was last reset
+
+
+def _check_experts(T: int, E: int, k: int) -> None:
+    if T < 1 or not 1 <= E <= MAX_EXPERTS:
+        raise ValueError(f"need T >= 1 and 1 <= E <= {MAX_EXPERTS} experts, got T={T} E={E}")
+    if not 1 <= k <= min(E, MAX_K):
+        raise ValueError(f"need 1 <= k <= min(E, {MAX_K}), got k={k} for E={E}")
+
+
+def router_plan(tokens: int, d_model: int, sms: int) -> Tuple[int, int]:
+    """(token rows per cluster, blocks per cluster) of ``moe_router``; D is
+    split over the cluster in runs of ROUTER_CHUNK rows.  Up to
+    DECODE_TOKENS tokens take the decode kernel (rows 0) on one cluster of
+    up to MAX_CLUSTER blocks: the router's read is spread over as many SMs
+    as a cluster holds.  More take the tile kernel: clusters of 8 blocks,
+    or up to 16 where D passes 8 runs of 8 chunks (its x slab must fit),
+    and the most rows per cluster (80, then 16) that still give about three
+    quarters of a block per SM, else 16."""
+    chunks = -(-d_model // ROUTER_CHUNK)
+    if tokens <= DECODE_TOKENS:
+        return 0, min(MAX_CLUSTER, chunks)
+    cluster = min(MAX_CLUSTER, max(min(8, chunks), -(-chunks // 8)))
+    for rows in (80, 16):
+        if -(-tokens // rows) * cluster >= 3 * sms // 4:
+            return rows, cluster
+    return 16, cluster
+
+
+def moe_router(x: torch.Tensor, router: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (T,D) bf16 or f32, router: (D,E) f32, both contiguous on one CUDA
+    device, D % 8 == 0 and D <= MAX_D -> (weights (T,k) f32, ids (T,k) int32,
+    probabilities (T,E) f32) of the logits ``x.float() @ router``."""
+    if not x.is_cuda:
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) \
+            or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous (T,D) bf16 or f32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if router.device != x.device or router.dim() != 2 or router.dtype != torch.float32 \
+            or not router.is_contiguous():
+        raise ValueError(f"router must be contiguous (D,E) f32 on {x.device}, got "
+                         f"{tuple(router.shape)} {router.dtype} on {router.device}")
+    T, D = x.shape
+    E = router.shape[1]
+    if router.shape[0] != D or D % 8 or D > MAX_D:
+        raise ValueError(f"x (T,D) = {tuple(x.shape)} and router {tuple(router.shape)} need "
+                         f"equal D with D % 8 == 0 and D <= {MAX_D}")
+    _check_experts(T, E, k)
+    if x.data_ptr() % 16 or router.data_ptr() % 16:
+        raise ValueError("x and router must start on a 16-byte boundary")
+    dev = x.device
+    w = torch.empty((T, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((T, k), dtype=torch.int32, device=dev)
+    probs = torch.empty((T, E), dtype=torch.float32, device=dev)
+    rows, cluster = router_plan(T, D, _sms(dev.index))
+    err = library().moe_router_fwd(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), router.data_ptr(), w.data_ptr(),
+        ids.data_ptr(), probs.data_ptr(), dev.index, T, D, E, k, rows, cluster,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"moe_router kernel launch failed: CUDA error {err}")
+    moe_router.launches += 1
+    return w, ids, probs
+
+
+moe_router.launches = 0   # kernel launches since the count was last reset

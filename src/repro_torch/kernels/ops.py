@@ -15,9 +15,10 @@ from . import ref
 from .decode_attention import flash_decode
 from .flash_attention import flash_attention
 from .moe_gating import moe_gating as _moe_gating_kernel
+from .moe_gating import moe_router as _moe_router_kernel
 from .ssd_scan import ssd_state_scan as _ssd_scan_kernel
 
-__all__ = ["attention", "decode_attention", "moe_gating", "ssd_state_scan"]
+__all__ = ["attention", "decode_attention", "moe_gating", "moe_router", "ssd_state_scan"]
 
 
 def _unsupported(t: torch.Tensor) -> ValueError:
@@ -48,6 +49,15 @@ def moe_gating(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     if logits.device.type == "cpu":
         return ref.moe_gating_ref(logits, k)
     raise _unsupported(logits)
+
+
+def moe_router(x: torch.Tensor, router: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if x.is_cuda:
+        return _moe_router_kernel(x, router, k)
+    if x.device.type == "cpu":
+        return ref.moe_router_ref(x, router, k)
+    raise _unsupported(x)
 
 
 def ssd_state_scan(chunk_states: torch.Tensor, chunk_decays: torch.Tensor,

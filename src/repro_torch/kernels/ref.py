@@ -13,7 +13,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 __all__ = ["attention_ref", "decode_attention_ref", "ssd_state_scan_ref",
-           "moe_gating_ref"]
+           "moe_gating_ref", "moe_router_ref"]
 
 _NEG = -1e30
 
@@ -88,3 +88,14 @@ def moe_gating_ref(logits: torch.Tensor, k: int
     w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, ids = w[:, :k], ids[:, :k]
     return w / w.sum(dim=-1, keepdim=True), ids.to(torch.int32)
+
+
+def moe_router_ref(x: torch.Tensor, router: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router's whole chain, as the reference's ``_local_moe`` runs it:
+    logits ``x.float() @ router`` in f32, ``moe_gating_ref`` on them, and
+    their softmax for the load-balance statistics.  x (T,D), router (D,E)
+    f32 -> (weights (T,k) f32, ids (T,k) int32, probabilities (T,E) f32)."""
+    logits = x.float() @ router
+    w, ids = moe_gating_ref(logits, k)
+    return w, ids, torch.softmax(logits, dim=-1)

@@ -80,7 +80,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.zeros_like(xbc)
     for i in range(K):  # K is 4: unrolled adds, as in the reference
         out = out + pad[:, i:i + S, :] * w[i]
-    return F.silu(out)
+    return L.silu(out)
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -155,7 +155,7 @@ def _gated_headnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, H: int,
                     eps: float) -> torch.Tensor:
     """Per-head RMS over P of (y * silu(z)); w: (d_inner,)."""
     B, S, d_inner = y.shape
-    gf = (y * F.silu(z)).reshape(B, S, H, d_inner // H).float()
+    gf = (y * L.silu(z)).reshape(B, S, H, d_inner // H).float()
     var = torch.mean(gf * gf, dim=-1, keepdim=True)
     g = (gf * torch.rsqrt(var + eps)).to(y.dtype).reshape(B, S, d_inner)
     return g * w
@@ -213,7 +213,7 @@ def ssm_decode_step(cfg: ArchConfig, blk: SSMBlock, x: torch.Tensor,
     z, xin, Bm, Cm, dtp = _split_proj(cfg, h @ p.in_proj)
     xbc = torch.cat([xin, Bm, Cm], dim=-1)                   # (B,1,conv_dim)
     window = torch.cat([conv_cache, xbc], dim=1)             # (B,K,conv_dim)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, p.conv_w))
+    conv_out = L.silu(torch.einsum("bkc,kc->bc", window, p.conv_w))
     xin, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
     dt = F.softplus(dtp.float() + p.dt_bias)[:, 0]           # (B,H)
     a = torch.exp(dt * -torch.exp(p.a_log.float()))          # (B,H)

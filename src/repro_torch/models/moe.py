@@ -2,13 +2,14 @@
 from ``repro/models/moe.py`` for serving on one device.
 
 Dispatch is the reference's sort-based capacity dispatch (``_local_moe``):
-tokens are routed by ``ops.moe_gating`` (the CUDA router kernel on the
-card), sorted by expert, scattered into an ``(E, cap, D)`` buffer and
-multiplied by every expert in three batched matrix products; assignments
-past an expert's capacity are dropped.  Only the single-device branch of
-``moe_block`` is ported; the expert-parallel ``shard_map`` branch waits for
-the multi-GPU slice.  The layers reuse the dense skeleton of
-``transformer.py`` with a ``Block`` whose feed-forward is the MoE.
+tokens are routed by ``ops.moe_router`` (on the card one CUDA kernel for
+the router product, softmax and top-k), sorted by expert, scattered into an
+``(E, cap, D)`` buffer and multiplied by every expert in three batched
+matrix products; assignments past an expert's capacity are dropped.  Only
+the single-device branch of ``moe_block`` is ported; the expert-parallel
+``shard_map`` branch waits for the multi-GPU slice.  The layers reuse the
+dense skeleton of ``transformer.py`` with a ``Block`` whose feed-forward is
+the MoE.
 """
 
 from __future__ import annotations
@@ -99,10 +100,10 @@ def _local_moe(cfg: ArchConfig, xf: torch.Tensor, p: MoE, e_lo: int = 0,
     cap = max(8, (cap + 7) // 8 * 8)
     n_sel = min(E_loc * cap, Tk)
 
-    logits = xf.float() @ p.router                             # (T, E)
-    weights, ids = ops.moe_gating(logits, k)                   # (T,k), (T,k)
+    # the f32 logits xf.float() @ router, their top-k and their softmax, in
+    # one call: (T,k), (T,k), (T,E)
+    weights, ids, probs = ops.moe_router(xf, p.router, k)
 
-    probs = torch.softmax(logits, dim=-1)
     # counts by scatter-add (exact in f32), not bincount, which waits for
     # the device to size its output
     frac_disp = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(

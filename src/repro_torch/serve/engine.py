@@ -140,11 +140,13 @@ class ServeEngine:
         self.tokens_out += 1
         self.last_tokens[slot, 0] = nxt
         self.slots[slot] = req
-        if (len(req.out) >= req.max_new
+        if (len(req.out) >= req.max_new or len(req.prompt) >= self.max_seq
                 or (req.eos is not None and nxt == req.eos)):
-            # budget exhausted (or EOS) on the prefill token itself: the
-            # request never enters the decode loop and its slot is free
-            # for the next queued request this very step
+            # budget exhausted (or EOS) on the prefill token itself, or a
+            # prompt that filled the cache, leaving no position for the
+            # next token's key: the request never enters the decode loop
+            # and its slot is free for the next queued request this very
+            # step
             req.done = True
             self.slots[slot] = None
             self.cache["index"][slot] = 0

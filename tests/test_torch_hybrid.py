@@ -234,6 +234,51 @@ def test_prefill_matches_jax_bf16():
         (err.max(), jerr.max(), err.mean(), jerr.mean())
 
 
+def _cache_from_jax(jcache):
+    """The JAX cache as the port's tensors: bf16 stays bf16 (exactly, through
+    f32), f32 and int32 keep their type."""
+    out = {}
+    for name, a in jcache.items():
+        a = jnp.asarray(a)
+        if a.dtype == jnp.bfloat16:
+            out[name] = torch.tensor(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(np.array(a))
+    return out
+
+
+def test_silu_rounds_as_the_reference_in_bf16():
+    """``layers.silu`` equals ``jax.nn.silu`` bit for bit in bf16 (XLA
+    rounds each op of x * (1 / (1 + exp(-x)))); ``F.silu``, rounding once,
+    does not."""
+    from repro_torch.models import layers
+    x = (np.random.default_rng(7).standard_normal(20_000) * 4).astype(np.float32)
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    want = torch.from_numpy(np.asarray(jax.nn.silu(jnp.asarray(x, jnp.bfloat16)), np.float32))
+    assert torch.equal(layers.silu(t).float(), want)
+    assert not torch.equal(torch.nn.functional.silu(t).float(), want)
+
+
+def test_decode_matches_jax_bf16():
+    """bf16 ``decode_step`` against JAX's at 3e-2: both start from the JAX
+    prefill's cache (SSD states in f32, conv windows and K/V in bf16; the
+    first 9 tokens of each prompt) and decode three tokens, each on its own
+    cache from then on.  The Mamba2 blocks round ``silu`` as the reference
+    does (``layers.silu``); with ``F.silu`` this test fails."""
+    jcfg, jparams, cfg, params = _pair("bfloat16")
+    jb = jax_bundle(jcfg)
+    toks = _tokens(cfg, (2, 12), seed=4)
+    _, jcache = jb.prefill(jcfg, jparams, jnp.asarray(toks[:, :9]), max_seq=12)
+    cache = _cache_from_jax(jcache)
+    assert cache["conv"].dtype == torch.bfloat16 and cache["state"].dtype == torch.float32
+    for i in range(9, 12):
+        jlog, jcache = jb.decode_step(jcfg, jparams, jcache, jnp.asarray(toks[:, i:i + 1]))
+        logits, cache = H.decode_step(cfg, params, cache, torch.from_numpy(toks[:, i:i + 1]))
+        assert logits.dtype == torch.bfloat16
+        _close(logits, jlog, tol=3e-2)
+    assert int(cache["index"]) == 12
+
+
 def test_serve_steps_cover_both_families():
     """``make_prefill`` / ``make_serve_step`` resolve each family's bundle."""
     for arch in ("qwen3-moe-30b-a3b", "zamba2-2.7b", "qwen3-1.7b"):

@@ -6,7 +6,10 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 
 Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 3e-2 in bf16;
 decode outputs are also held row by row to a share of each row's size, as
-in chip_smoke.py.
+in chip_smoke.py.  ``moe_router`` sums its logits in another order than
+cuBLAS, so its ids are compared tie-aware, as in chip_smoke.py: at every
+rank the kernel's expert must have a plain probability within
+ROUTER_TIE_DELTA of the plain choice's.
 """
 
 import numpy as np
@@ -16,11 +19,12 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.moe_gating import moe_gating
+from repro_torch.kernels.moe_gating import moe_gating, moe_router
 from repro_torch.kernels.ssd_scan import ssd_state_scan
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DECODE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # as chip_smoke.py
+ROUTER_TIE_DELTA = 1e-4                                # as chip_smoke.py
 
 
 @pytest.fixture
@@ -203,6 +207,57 @@ def test_moe_gating_kernel_matches_plain(cuda_device, T, E, k, tied):
     _assert_close(w, want_w, "float32")
 
 
+def _router_inputs(T, D, E, dtype, device, seed, dup=False):
+    """x (T,D) in ``dtype`` and the router (D,E) f32 at the model's scale
+    (logits of about unit size); ``dup`` repeats E//8 distinct columns 8
+    times, so the logits hold exact ties that both paths see bitwise equal."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((T, D)), dtype=torch.float32, device=device)
+    router = rng.standard_normal((D, E)) * D ** -0.5
+    if dup:
+        router = np.repeat(router[:, :E // 8], 8, axis=1)
+    return x.to(getattr(torch, dtype)), torch.tensor(router, dtype=torch.float32,
+                                                     device=device)
+
+
+def _assert_router_close(got, want, E):
+    """Weights and probabilities at 2e-5; ids distinct, in range, and equal
+    to the plain ones up to ties within ROUTER_TIE_DELTA."""
+    (w, ids, probs), (want_w, want_ids, want_probs) = got, want
+    _assert_close(w, want_w, "float32")
+    _assert_close(probs, want_probs, "float32")
+    srt = ids.sort(dim=1).values
+    assert bool((ids >= 0).all() and (ids < E).all() and (srt[:, 1:] > srt[:, :-1]).all())
+    gap = (want_probs.gather(1, ids.long()) - want_probs.gather(1, want_ids.long())).abs()
+    assert float(gap.max()) <= ROUTER_TIE_DELTA, float(gap.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,k", [(8, 2), (64, 6), (128, 8)])
+@pytest.mark.parametrize("T", [1, 4, 17, 300, 1200])
+def test_moe_router_kernel_matches_plain(cuda_device, T, E, k, dtype):
+    x, router = _router_inputs(T, 2048, E, dtype, cuda_device, seed=T + E)
+    before = moe_router.launches, moe_gating.launches
+    got = ops.moe_router(x, router, k)
+    assert (moe_router.launches, moe_gating.launches) == (before[0] + 1, before[1])
+    _assert_router_close(got, ref.moe_router_ref(x, router, k), E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,E,k", [(4, 2048, 128, 8), (1200, 2048, 128, 8),
+                                     (300, 64, 64, 6), (17, 136, 256, 32)])
+def test_moe_router_kernel_breaks_exact_ties_to_the_lowest_index(cuda_device, T, D, E, k):
+    """Router columns repeated 8 times: both paths see bitwise-equal logits
+    in a group, and the ids must then be exactly the plain ones."""
+    x, router = _router_inputs(T, D, E, "bfloat16", cuda_device, seed=D, dup=True)
+    w, ids, probs = moe_router(x, router, k)
+    want_w, want_ids, want_probs = ref.moe_router_ref(x, router, k)
+    assert torch.equal(ids, want_ids)
+    _assert_close(w, want_w, "float32")
+    _assert_close(probs, want_probs, "float32")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 3, 64, 80, 64), (2, 5, 4, 16, 16), (1, 300, 2, 8, 8)])
 @pytest.mark.parametrize("with_init", [False, True])
@@ -243,6 +298,26 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         moe_gating(logits[:, :128].to(torch.bfloat16), 8)
     with pytest.raises(ValueError, match="k <="):
         moe_gating(logits[:, :8].contiguous(), 9)
+    x, router = _router_inputs(4, 64, 64, "bfloat16", cuda_device, seed=0)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        moe_router(x.half(), router, 8)
+    with pytest.raises(ValueError, match="router must be contiguous"):
+        moe_router(x, router.to(torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="equal D"):
+        moe_router(x[:, :56].contiguous(), router, 8)
+    with pytest.raises(ValueError, match="D % 8"):
+        moe_router(x[:, :12].contiguous(), router[:12].contiguous(), 8)
+    with pytest.raises(ValueError, match="D <= 8192"):
+        moe_router(torch.zeros((4, 8200), device=cuda_device),
+                   torch.zeros((8200, 64), device=cuda_device), 8)
+    with pytest.raises(ValueError, match="E <= 256"):
+        moe_router(x, torch.zeros((64, 257), device=cuda_device), 8)
+    with pytest.raises(ValueError, match="k <="):
+        moe_router(x, router, 33)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        moe_router(x.t().contiguous().t(), router, 8)
+    with pytest.raises(ValueError, match="router must be contiguous"):
+        moe_router(x, torch.zeros((64, 128), device=cuda_device)[:, ::2], 8)
     xs = torch.zeros((1, 3, 2, 8, 8), device=cuda_device)
     a = torch.ones((1, 3, 2), device=cuda_device)
     with pytest.raises(ValueError, match="f32 only"):

@@ -157,6 +157,37 @@ def test_prefill_matches_jax_bf16():
     _close(logits, jlog, tol=3e-2)
 
 
+def _cache_from_jax(jcache):
+    """The JAX cache as the port's tensors: bf16 stays bf16 (exactly, through
+    f32), f32 and int32 keep their type."""
+    out = {}
+    for name, a in jcache.items():
+        a = jnp.asarray(a)
+        if a.dtype == jnp.bfloat16:
+            out[name] = torch.tensor(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(np.array(a))
+    return out
+
+
+def test_decode_matches_jax_bf16():
+    """bf16 ``decode_step`` against JAX's at 3e-2: both start from the JAX
+    prefill's cache (the prompt's first 9 tokens) and decode three tokens,
+    each on its own cache from then on."""
+    jcfg, jparams, cfg, params = _pair("qwen3-1.7b", dtype="bfloat16")
+    jb = jax_bundle(jcfg)
+    toks = _tokens(cfg, (1, 12), seed=4)
+    _, jcache = jb.prefill(jcfg, jparams, jnp.asarray(toks[:, :9]), max_seq=12)
+    cache = _cache_from_jax(jcache)
+    assert cache["k"].dtype == torch.bfloat16
+    for i in range(9, 12):
+        jlog, jcache = jb.decode_step(jcfg, jparams, jcache, jnp.asarray(toks[:, i:i + 1]))
+        logits, cache = T.decode_step(cfg, params, cache, torch.from_numpy(toks[:, i:i + 1]))
+        assert logits.dtype == torch.bfloat16
+        _close(logits, jlog, tol=3e-2)
+    assert int(cache["index"]) == 12
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_teacher_forcing(arch):
     """Greedy decode logits == full-forward logits at the same positions

@@ -4,7 +4,9 @@ oracle and the Pallas kernel (interpret mode), the sort-based dispatch
 JAX ``bundle.init`` through ``interop``) against the JAX model, on the CPU.
 
 Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 3e-2 in bf16;
-router ids are compared exactly, ties included.
+router ids are compared exactly, ties included.  The router's whole chain
+(``moe_router_ref``: product, top-k, softmax) is held against the chain
+the reference's ``_local_moe`` runs.
 """
 
 import dataclasses
@@ -27,6 +29,8 @@ from repro_torch.configs.base import smoke_of
 from repro_torch.interop import params_from_jax, params_to_jax
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.moe_gating import moe_gating as cuda_gating
+from repro_torch.kernels.moe_gating import moe_router as cuda_router
+from repro_torch.kernels.moe_gating import router_plan
 from repro_torch.models import moe as M
 from repro_torch.train.step import make_prefill, make_serve_step
 
@@ -86,6 +90,75 @@ def test_ops_moe_gating_takes_the_plain_version_on_cpu():
     assert cuda_gating.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         cuda_gating(x, 6)
+
+
+def _router_inputs(T, D, E, dtype, dup, seed):
+    """x (T,D) in ``dtype`` (as numpy f32 values it holds exactly) and the
+    router (D,E) f32; ``dup`` repeats E//8 distinct columns 8 times, so the
+    logits hold exact ties that both sides see bitwise equal."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, D)).astype(np.float32)
+    if dtype == "bfloat16":
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    router = (rng.standard_normal((D, E)) * D ** -0.5).astype(np.float32)
+    if dup:
+        router = np.repeat(router[:, :E // 8], 8, axis=1)
+    return x, router
+
+
+@pytest.mark.parametrize("T,D,E,k,dtype,dup", [
+    (4, 64, 8, 2, "bfloat16", False),       # the smoke config's decode
+    (17, 64, 8, 2, "float32", False),       # ragged T
+    (300, 128, 64, 6, "bfloat16", False),
+    (33, 256, 128, 8, "float32", False),
+    (64, 64, 128, 8, "bfloat16", True),     # duplicated columns: exact ties
+    (5, 96, 16, 4, "float32", True),
+])
+def test_moe_router_ref_matches_jax(T, D, E, k, dtype, dup):
+    x, router = _router_inputs(T, D, E, dtype, dup, seed=T + D + E)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    w, ids, probs = ref.moe_router_ref(tx, torch.from_numpy(router), k)
+    assert (w.dtype, ids.dtype, probs.dtype) == (torch.float32, torch.int32, torch.float32)
+    assert tuple(probs.shape) == (T, E)
+    jlogits = jnp.asarray(x, getattr(jnp, dtype)).astype(jnp.float32) @ jnp.asarray(router)
+    jw, jids = jref.moe_gating_ref(jlogits, k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    _close(w, jw)
+    _close(probs, jax.nn.softmax(jlogits, axis=-1))
+    if dup:   # equal weights come in ascending ids: a tie goes to the lowest index
+        assert bool(((w[:, 1:] != w[:, :-1]) | (ids[:, 1:] > ids[:, :-1])).all())
+        assert bool((w[:, 1:] == w[:, :-1]).any())
+
+
+def test_ops_moe_router_takes_the_plain_version_on_cpu():
+    x, router = (torch.from_numpy(a) for a in _router_inputs(300, 64, 64, "float32",
+                                                               False, seed=2))
+    before = cuda_router.launches
+    got = ops.moe_router(x.to(torch.bfloat16), router, 6)
+    want = ref.moe_router_ref(x.to(torch.bfloat16), router, 6)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert cuda_router.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_router(x, router, 6)
+
+
+@pytest.mark.parametrize("T,D,want", [
+    (1, 2048, (0, 16)), (4, 2048, (0, 16)), (8, 64, (0, 2)), (4, 6144, (0, 16)),
+    (17, 2048, (16, 8)), (300, 2048, (16, 8)), (1200, 2048, (80, 8)),
+    (1200, 6144, (80, 16)), (1200, 8192, (80, 16)),
+])
+def test_router_plan_fits_the_kernels(T, D, want):
+    """Up to 8 tokens take the decode kernel (rows 0) on one cluster of at
+    most 16 blocks, each at least one 32-row chunk of D; more take the tile
+    kernel, whose x slab (its rows of the block's D-slice, in f32) leaves
+    room in the 227 KB of shared memory for one ring stage at E = 256."""
+    rows, cluster = router_plan(T, D, sms=132)
+    assert (rows, cluster) == want
+    chunks = -(-D // 32)
+    assert 1 <= cluster <= min(16, chunks)
+    if rows:
+        slab = rows * -(-chunks // cluster) * 32 * 4
+        assert 128 + slab + (32 * 256 + 256) * 4 <= 227 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +290,37 @@ def test_prefill_matches_jax_bf16():
     logits, _ = M.prefill(cfg, params, torch.from_numpy(toks))
     assert logits.dtype == torch.bfloat16
     _close(logits, jlog, tol=3e-2)
+
+
+def _cache_from_jax(jcache):
+    """The JAX cache as the port's tensors: bf16 stays bf16 (exactly, through
+    f32), f32 and int32 keep their type."""
+    out = {}
+    for name, a in jcache.items():
+        a = jnp.asarray(a)
+        if a.dtype == jnp.bfloat16:
+            out[name] = torch.tensor(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(np.array(a))
+    return out
+
+
+def test_decode_matches_jax_bf16():
+    """bf16 ``decode_step`` against JAX's at 3e-2: both start from the JAX
+    prefill's cache (the prompt's first 9 tokens) and decode three tokens,
+    each on its own cache from then on."""
+    jcfg, jparams, cfg, params = _pair("bfloat16")
+    jb = jax_bundle(jcfg)
+    toks = _tokens(cfg, (1, 12), seed=4)
+    _, jcache = jb.prefill(jcfg, jparams, jnp.asarray(toks[:, :9]), max_seq=12)
+    cache = _cache_from_jax(jcache)
+    assert cache["k"].dtype == torch.bfloat16
+    for i in range(9, 12):
+        jlog, jcache = jb.decode_step(jcfg, jparams, jcache, jnp.asarray(toks[:, i:i + 1]))
+        logits, cache = M.decode_step(cfg, params, cache, torch.from_numpy(toks[:, i:i + 1]))
+        assert logits.dtype == torch.bfloat16
+        _close(logits, jlog, tol=3e-2)
+    assert int(cache["index"]) == 12
 
 
 def test_decode_matches_teacher_forcing():

@@ -264,3 +264,30 @@ def test_serve_cli_on_cpu(monkeypatch, capsys):
     serve.main()
     out = capsys.readouterr().out
     assert "requests=3 tokens=12" in out and "device=cpu" in out
+
+
+@pytest.mark.parametrize("n", [14, 15, 16, 17])
+def test_prompt_that_fills_max_seq_finishes_at_prefill(smoke_f32, n):
+    """A prompt of max_seq tokens leaves no cache position for the next
+    token's key: the port emits the first token only (the JAX engine's
+    first) and frees the slot; shorter prompts decode as in JAX, and a
+    longer one is refused by both engines."""
+    jcfg, jparams, cfg, params = smoke_f32
+    prompt = list(range(1, n + 1))
+    jax_eng = JaxServeEngine(jcfg, jparams, max_batch=2, max_seq=16)
+    eng = _engine(cfg, params, max_batch=2, max_seq=16)
+    jr, r = jax_eng.submit(prompt, max_new=4), eng.submit(prompt, max_new=4)
+    if n > 16:
+        with pytest.raises(Exception):
+            jax_eng.run()
+        with pytest.raises(ValueError, match="exceeds max_seq"):
+            eng.run()
+        return
+    jax_eng.run()
+    done = eng.run()
+    if n == 16:
+        assert done == [r] and r.done and r.out == jr.out[:1]
+        assert eng.decode_steps == 0
+        assert eng.slots == [None, None] and eng.cache["index"].tolist() == [0, 0]
+    else:
+        assert r.out == jr.out and eng.decode_steps == jax_eng.decode_steps
