@@ -13,7 +13,10 @@
    ties, ids compared exactly; the fused router (product, softmax, top-k)
    at the qwen3-moe shapes, ids compared up to near ties and exactly where
    router columns repeat; the SSD state scan with and without an initial
-   state);
+   state; the attention backward at head dims 64, 80 and 128, GQA groups 1,
+   2, 7 and 8, Sq = Sk and Sq < Sk, ragged tails around the 64-row tile and
+   strided views, in f32 and bf16, against its plain closed form, and the
+   forward's log-sum-exp);
 3. serves qwen3-1.7b at full width and depth (random weights from a seeded
    ``torch.Generator``) through ``ServeEngine``: 12 requests, prompts of
    8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots; then one
@@ -33,11 +36,23 @@
    attention kernels at all three GQA groups: 2, 1 and 8) beside its
    bound, its plain version and one PyTorch library call where one exists,
    with L2 flushed by writing and by reading 256 MB, and prints the table
-   as JSON.
+   as JSON; and the attention backward at phase 8's layer shape beside its
+   bound, its plain version and autograd through PyTorch's SDPA;
+8. trains qwen3-1.7b at full width and depth (1.72 B params, bf16, f32
+   AdamW moments) through ``run_training``: 10 steps of 4 x 1024 synthetic
+   tokens, checkpoints every 5 steps into an in-memory lake.  Gates: the
+   kernel path's gradients against the plain bf16 and f32 paths on one
+   batch; 28 forward and 28 backward attention launches per step (56
+   forward under remat "full" and "dots"); finite losses that fall; the
+   latest checkpoint restored bit-equal, and two further steps from it and
+   from the live state giving the same losses bit for bit.  Prints ms per
+   step, tokens/s, the model-FLOPs share of 989 TFLOP/s, peak memory and the
+   device's idle share over profiled steps.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
-profiled decode steps give each kernel's device time per served step.  The last
+profiled decode steps give each kernel's device time per served step.
+Phase 8 does the same around the training run and its profiled steps.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero and
 prints no result.
@@ -87,6 +102,18 @@ DECODE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # faults' (scripts/router_variants.py faults; both in PERF.md).
 ROUTER_TIE_DELTA = 1e-4
 
+# The attention backward's gradients are also held row by row (a query's or
+# a key's head vector) to this share of the row's size, floored at 0.1 of
+# the median row's: the rows that cancel to about nothing (a query that
+# sees one key has dS = dP - D = 0) read rounding noise over a zero, ~1e-5
+# of the median row in f32 (grad_row_rel_err).
+GRAD_ROW_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+# phase 8: (arch, batch, sequence, steps, checkpoint every, peak lr)
+TRAIN_RUN = ("qwen3-1.7b", 4, 1024, 10, 5, 3e-3)
+GATE_BATCH = 1            # the gradient gate's batch (x the run's sequence)
+TRAIN_PROFILE_STEPS = 2
+
 # phases 5 and 6: (arch, batch, prompt length, max_seq, greedy decode steps)
 HYBRID_RUN = ("zamba2-2.7b", 4, 700, 1024, 32)
 MOE_RUN = ("qwen3-moe-30b-a3b", 4, 300, 512, 16)
@@ -124,6 +151,21 @@ def max_err(out, want, tol):
     return float(err.max()), bool((err <= tol + tol * want.abs()).all())
 
 
+def grad_row_rel_err(out, want, tol):
+    """max over rows (a query's or a key's head vector) of |out - want| /
+    max(|want|, 0.1 x the median row's |want|), Euclidean norms; None where
+    the median row is below ``tol`` x sqrt(hd), the size of a row of
+    elementwise-tolerance errors (every row a sum that cancels to about
+    nothing, as dq where each query sees one key): the elementwise bound
+    holds such a tensor alone."""
+    out, want = out.float().flatten(0, -2), want.float().flatten(0, -2)
+    norm = want.norm(dim=-1)
+    median = float(norm.median())
+    if median < tol * want.shape[-1] ** 0.5:
+        return None
+    return float(((out - want).norm(dim=-1) / norm.clamp(min=0.1 * median)).max())
+
+
 def row_rel_err(out, want) -> float:
     """max over rows (every index but the last) of |out - want| / |want|,
     Euclidean norms."""
@@ -157,18 +199,19 @@ def time_ms(torch, fn, flush, reps: int = 25, warmup: int = 3) -> float:
 def kernels():
     """name -> wrapper of every kernel; each wrapper counts its launches."""
     from repro_torch.kernels.decode_attention import flash_decode
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.moe_gating import moe_gating, moe_router
     from repro_torch.kernels.ssd_scan import ssd_state_scan
-    return {"flash_attention": flash_attention, "flash_decode": flash_decode,
-            "moe_gating": moe_gating, "moe_router": moe_router,
-            "ssd_state_scan": ssd_state_scan}
+    return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "flash_decode": flash_decode, "moe_gating": moe_gating,
+            "moe_router": moe_router, "ssd_state_scan": ssd_state_scan}
 
 
 # wrapper -> a part of the name of every CUDA kernel it launches, as the
 # profiler reports them
 KERNEL_SYMBOLS = {
     "flash_attention": ("attention_bf16_kernel", "flash_attention_kernel"),
+    "flash_attention_bwd": ("bwd_dot_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"),
     "flash_decode": ("flash_decode_",),
     "moe_gating": ("moe_gating_kernel",),
     "moe_router": ("moe_router_kernel", "moe_router_decode_kernel"),
@@ -266,6 +309,22 @@ ATTN_CASES = [  # (B, Sq, Sk, H, K, hd, causal[, "strided"])
     (2, 140, 140, 8, 4, 80, True, "strided"),
 ]
 
+BWD_CASES = [  # (B, Sq, Sk, H, K, hd, causal[, "strided"])
+    (4, 1024, 1024, 16, 8, 128, True),     # phase 8's layer: qwen3-1.7b, group 2
+    (1, 200, 200, 16, 8, 128, True),       # ragged: 3 tiles and 8 rows
+    (1, 17, 200, 16, 8, 128, True),        # Sq < Sk: queries are the last 17
+    (1, 150, 211, 32, 32, 80, True),       # head dim 80, group 1, ragged Sq and Sk
+    (2, 300, 300, 32, 4, 128, True),       # group 8
+    (2, 65, 130, 14, 2, 64, True),         # head dim 64, group 7
+    (1, 65, 33, 16, 8, 128, False),
+    # query counts around the 64-row tile; the diagonal on and inside a tile
+    *((1, Sq, Sq + extra, 16, 8, 64, True) for Sq in (1, 63, 64, 65, 129)
+      for extra in (0, 100)),
+    # q and dO views with padded heads, k/v a layer of a stacked tensor
+    (2, 140, 140, 8, 4, 128, True, "strided"),
+    (2, 140, 140, 8, 4, 80, True, "strided"),
+]
+
 DECODE_CASES = [  # (B, Smax, H, K, hd, lengths)
     (8, 2048, 16, 8, 128, [1, 7, 64, 65, 1000, 1500, 2047, 2048]),
     (3, 300, 14, 2, 64, [1, 150, 300]),
@@ -355,9 +414,48 @@ def check_kernels(torch, dev):
                   f"row_rel_err={rel:.3e} (tol {rel_tol})")
             check(ok, f"flash_decode disagrees with decode_attention_ref: {err}")
             check(rel <= rel_tol, f"flash_decode rows off decode_attention_ref: {rel}")
+    check_attention_bwd(torch, dev, gen)
     check_moe_gating(torch, dev, gen)
     check_moe_router(torch, dev, gen)
     check_ssd_scan(torch, dev, gen)
+
+
+def check_attention_bwd(torch, dev, gen):
+    """The backward kernel against ``ref.attention_bwd_ref`` (f32, from the
+    same inputs), from the forward kernel's own output and log-sum-exp; the
+    log-sum-exp against ``ref.attention_lse_ref``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    for dtype_name in ("float32", "bfloat16"):
+        dtype, tol = getattr(torch, dtype_name), TOL[dtype_name]
+
+        def randn(shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        for B, Sq, Sk, H, K, hd, causal, *strided in BWD_CASES:
+            if strided:
+                q, do = randn((B, Sq, H, hd + 8))[..., :hd], randn((B, Sq, H, hd + 8))[..., :hd]
+                k, v = randn((2, B, Sk, K, hd))[1], randn((2, B, Sk, K, hd))[1]
+            else:
+                q, k, v = randn((B, Sq, H, hd)), randn((B, Sk, K, hd)), randn((B, Sk, K, hd))
+                do = randn((B, Sq, H, hd))
+            o, lse = flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+            err_l, ok_l = max_err(lse, ref.attention_lse_ref(q, k, causal=causal), tol)
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+            torch.cuda.synchronize()
+            errs = [max_err(g, w, tol) for g, w in zip(got, want)]
+            rels = [grad_row_rel_err(g, w, tol) for g, w in zip(got, want)]
+            print(f"  flash_attention_bwd {dtype_name} B={B} Sq={Sq} Sk={Sk} H={H} K={K} "
+                  f"hd={hd} causal={causal}{' strided' if strided else ''}: max_abs_err "
+                  f"dq/dk/dv={'/'.join(f'{e:.3e}' for e, _ in errs)} (tol {tol}), "
+                  f"row_rel_err={'/'.join('n/a' if r is None else f'{r:.3e}' for r in rels)} "
+                  f"(tol {GRAD_ROW_TOL[dtype_name]}); lse max_abs_err={err_l:.3e}")
+            check(ok_l, f"the forward's lse disagrees with attention_lse_ref: {err_l}")
+            check(all(ok for _, ok in errs), f"flash_attention_bwd disagrees with "
+                                             f"attention_bwd_ref: {errs}")
+            check(all(r is None or r <= GRAD_ROW_TOL[dtype_name] for r in rels),
+                  f"flash_attention_bwd rows off attention_bwd_ref: {rels}")
 
 
 def gating_logits(torch, gen, dev, T, E, tied):
@@ -556,8 +654,8 @@ def prompt_fills_cache(torch, np, cfg, eng):
           f"no decode step; the next request served")
 
 
-def profile_steps(torch, step, label, spans=()):
-    """Host time per call of ``step`` over PROFILE_STEPS calls, then device
+def profile_steps(torch, step, label, spans=(), n=PROFILE_STEPS):
+    """Host time per call of ``step`` over ``n`` calls, then device
     time per call by kernel from a torch.profiler window over as many more
     (sum of kernel durations; one stream, so they do not overlap), and the
     device's idle share of the unprofiled call.  Returns the host and the
@@ -572,15 +670,15 @@ def profile_steps(torch, step, label, spans=()):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(PROFILE_STEPS):
+    for _ in range(n):
         step()
     torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
+    step_ms = 1e3 * (time.perf_counter() - t0) / n
     by_name, ranges, ran = {}, {name: [] for name in spans}, []
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(PROFILE_STEPS):
+            for _ in range(n):
                 step()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -604,16 +702,16 @@ def profile_steps(torch, step, label, spans=()):
             i = bisect.bisect_right(starts, start) - 1
             if i >= 0 and end <= intervals[i][1]:
                 inside += end - start
-        span_us[name] = inside / PROFILE_STEPS
+        span_us[name] = inside / n
     busy_ms = sum(by_name.values())
-    busy_step = busy_ms / PROFILE_STEPS
+    busy_step = busy_ms / n
     print(f"  {label}: {step_ms:.2f} ms host clock; device busy {busy_step:.2f} ms/step, "
           f"idle share {1 - busy_step / step_ms:.3f} (profiled window "
-          f"{wall_ms / PROFILE_STEPS:.2f} ms/step)" if busy_ms else
+          f"{wall_ms / n:.2f} ms/step)" if busy_ms else
           f"  {label}: {step_ms:.2f} ms host clock; profiler saw no device time")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"    {ms / PROFILE_STEPS:8.3f} ms/step  {name[:100]}")
-    kernel_us = {w: 1e3 / PROFILE_STEPS * sum(ms for name, ms in by_name.items()
+        print(f"    {ms / n:8.3f} ms/step  {name[:100]}")
+    kernel_us = {w: 1e3 / n * sum(ms for name, ms in by_name.items()
                                               if any(sym in name for sym in syms))
                  for w, syms in KERNEL_SYMBOLS.items()}
     print(f"  repo kernels, device us per step: "
@@ -845,6 +943,176 @@ def teacher_forced(torch, np, cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: train qwen3-1.7b through run_training
+# ---------------------------------------------------------------------------
+
+def loss_and_grads(torch, cfg, params, batch, remat="none"):
+    from repro_torch.models import bundle_for
+    loss = bundle_for(cfg).loss_fn(cfg, params, batch, remat=remat)
+    return loss.item(), torch.autograd.grad(loss, list(params.parameters()))
+
+
+def gradient_gate(torch, np, dev, cfg):
+    """One batch through the kernel path, the plain path (``ops.attention``
+    patched to ``ref.attention_ref``, as phase 4 patches) and the plain path
+    in f32 (remat "full" to fit): for every parameter, the kernel path's
+    relative gradient error against f32 at most TEACHER_SLACK times the
+    plain bf16 path's; the loss the same way."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import bundle_for
+    seq = TRAIN_RUN[2]
+    params = bundle_for(cfg).init(cfg, 0, device=dev).requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(SyntheticLM(cfg, GATE_BATCH, seq, seed=7)).items()}
+    reset_launches()
+    loss_k, grads_k = loss_and_grads(torch, cfg, params, batch)
+    launched = launches_now()
+    check(launched["flash_attention"] == launched["flash_attention_bwd"] == cfg.n_layers,
+          f"kernel path launches {launched}")
+    with mock.patch.object(ops, "attention", ref.attention_ref):
+        loss_p, grads_p = loss_and_grads(torch, cfg, params, batch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = copy.deepcopy(params).float()
+        loss_32, grads_32 = loss_and_grads(torch, cfg32, params32, batch, remat="full")
+        del params32
+    check(launches_now() == launched, "a kernel launched on the plain paths")
+    worst, names = 0.0, [n for n, _ in params.named_parameters()]
+    for name, gk, gp, g32 in zip(names, grads_k, grads_p, grads_32):
+        norm = float(g32.norm())
+        ek, ep = float((gk.float() - g32).norm()) / norm, float((gp.float() - g32).norm()) / norm
+        worst = max(worst, ek / ep)
+        check(ek <= TEACHER_SLACK * ep, f"{name}: kernel path's gradient err {ek:.4e} > "
+                                        f"{TEACHER_SLACK} x the plain bf16 path's {ep:.4e}")
+    lk, lp = abs(loss_k - loss_32), abs(loss_p - loss_32)
+    print(f"  gradient gate (batch {GATE_BATCH} x {seq}): loss kernel {loss_k:.6f}, plain bf16 "
+          f"{loss_p:.6f}, plain f32 {loss_32:.6f}; |dloss| vs f32 kernel {lk:.3e}, plain "
+          f"{lp:.3e}; over {len(names)} parameter tensors the largest ratio of relative "
+          f"gradient errors (kernel / plain bf16) {worst:.3f} (limit {TEACHER_SLACK})")
+    for name in ("blocks.0.attn.wq", "blocks.0.attn.wk", "blocks.0.attn.wv",
+                 f"blocks.{cfg.n_layers - 1}.attn.wq", "embed.table"):
+        i = names.index(name)
+        ek, ep = (float((g[i].float() - grads_32[i]).norm() / grads_32[i].norm())
+                  for g in (grads_k, grads_p))
+        print(f"    {name}: relative gradient err kernel {ek:.4e}, plain bf16 {ep:.4e}")
+    check(lk <= TEACHER_SLACK * lp, f"kernel path's loss err {lk} > {TEACHER_SLACK} x the "
+                                    f"plain bf16 path's {lp}")
+
+
+def train(torch, np, dev):
+    """Phase 8.  Returns the run's kernel launches and the profiled steps'
+    device us per step of each kernel."""
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.lake import MemoryLake
+    from repro_torch.models import model_flops, param_count
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step, train_state_shape
+    from repro_torch.train.trainer import run_training
+
+    arch, B, S, steps, every, lr = TRAIN_RUN
+    cfg = get_config(arch)
+    n = param_count(cfg)
+    print(f"  {n / 1e9:.3f} B params, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.dtype}; AdamW moments f32")
+    gradient_gate(torch, np, dev, cfg)
+    torch.cuda.empty_cache()
+
+    lake, times = MemoryLake(), []
+
+    def on_step(step, loss):
+        times.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_training(cfg, steps=steps, batch=B, seq=S, lake=lake, run_name="phase8",
+                       ckpt_every=every, seed=0, lr=lr, device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  run_training: {res.steps_done} steps of {B} x {S} tokens in "
+          f"{time.perf_counter() - t0:.1f} s (init, checkpoints at {every} and {steps} "
+          f"included); launches {launches}")
+    print(f"  losses: {[round(x, 4) for x in res.losses]}")
+    check(res.steps_done == steps and all(np.isfinite(res.losses)), "non-finite loss")
+    check(res.losses[-1] < res.losses[0], "the loss did not fall")
+    for name in kernels():
+        want = steps * cfg.n_layers if name.startswith("flash_attention") else 0
+        check(launches[name] == want, f"{name}: {launches[name]} launches over {steps} "
+                                      f"steps, expected {want}")
+    step_s = statistics.median(b - a for a, b in zip(times[1:], times[2:]))   # steps 3-10
+    flops = model_flops(cfg, ShapeConfig("phase8", "train", S, B))
+    print(f"  ms_per_step={1e3 * step_s:.1f} (median of steps 3-{steps}) "
+          f"tokens_per_s={B * S / step_s:.1f} model_flops_per_step={flops:.4e} "
+          f"mfu={flops / step_s / PEAK_FLOPS['bfloat16']:.4f} (of 989 TFLOP/s) "
+          f"peak_memory={peak / 2**30:.2f} GiB")
+
+    # checkpoint: latest restored bit-equal; two more steps from it and from
+    # the live state give the same losses
+    optimizer = AdamW(lr=warmup_cosine(lr, max(steps // 20, 2), steps))
+    template = train_state_shape(cfg, optimizer)
+    live = res.state
+    res.state = None
+    restored, at = restore_checkpoint(lake, "phase8", template, device=dev)
+    check(at == steps, f"latest checkpoint at {at}")
+    same = [torch.equal(a, b) for a, b in zip(restored["params"].parameters(),
+                                              live["params"].parameters())]
+    for which in ("m", "v"):
+        same += [torch.equal(getattr(restored["opt"], which)[k], getattr(live["opt"], which)[k])
+                 for k in getattr(live["opt"], which)]
+    same.append(torch.equal(restored["opt"].step, live["opt"].step))
+    check(all(same), f"{same.count(False)} of {len(same)} restored tensors differ")
+    del restored
+    pipe = SyntheticLM(cfg, B, S, seed=99)
+    extra = [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()} for _ in range(2)]
+    step_fn = make_train_step(cfg, optimizer)
+
+    def two_steps(state):
+        losses = []
+        for batch in extra:
+            state, metrics = step_fn(state, batch)
+            losses.append(metrics["loss"].item())
+        return losses, state
+
+    live_losses, live = two_steps(live)
+    del live
+    torch.cuda.empty_cache()
+    state, _ = restore_checkpoint(lake, "phase8", template, device=dev)
+    del lake
+    restored_losses, state = two_steps(state)
+    print(f"  checkpoint at step {at}: {len(same)} tensors restored bit-equal; two more "
+          f"steps from the live state {live_losses}, from the restored one {restored_losses}")
+    check(live_losses == restored_losses, "the restored state trains differently")
+
+    # launches per step under each remat policy
+    batch = extra[0]
+    for remat, fwd in (("none", 1), ("full", 2), ("dots", 2)):
+        fn = make_train_step(cfg, optimizer, remat=remat)
+        reset_launches()
+        state, _ = fn(state, batch)
+        torch.cuda.synchronize()
+        got = launches_now()
+        print(f"  remat {remat!r}: launches per step {got}")
+        check(got["flash_attention"] == fwd * cfg.n_layers
+              and got["flash_attention_bwd"] == cfg.n_layers,
+              f"remat {remat}: {got}, expected {fwd * cfg.n_layers} forward and "
+              f"{cfg.n_layers} backward attention launches")
+
+    def one_step():
+        nonlocal state
+        state, metrics = step_fn(state, batch)
+        metrics["loss"].item()
+
+    served = profile_steps(torch, one_step, f"training step ({B} x {S} tokens)",
+                           n=TRAIN_PROFILE_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "served": served}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the kernel table at serving shapes
 # ---------------------------------------------------------------------------
 
@@ -859,7 +1127,8 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import flash_decode
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_fwd)
     from repro_torch.kernels.moe_gating import moe_gating, moe_router
     from repro_torch.kernels.ssd_scan import ssd_state_scan
 
@@ -931,6 +1200,33 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True), TOL["bfloat16"],
             served=served)
+
+    def bwd_row(model, B, S, H, K, hd):
+        q, k, v, do = (randn((B, S, H, hd)), randn((B, S, K, hd)), randn((B, S, K, hd)),
+                       randn((B, S, H, hd)))
+        o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        pairs = S * (S + 1) // 2
+
+        def compare(out, want):
+            errs = [max_err(g, w, TOL["bfloat16"]) for g, w in zip(out, want)]
+            rels = [grad_row_rel_err(g, w, TOL["bfloat16"]) for g, w in zip(out, want)]
+            return (max(e for e, _ in errs), all(ok for _, ok in errs) and all(
+                r is None or r <= GRAD_ROW_TOL["bfloat16"] for r in rels))
+
+        # bytes: q, k, v, o, dO and lse read once; dq, dk, dv written once
+        add("flash_attention_bwd", "flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:94",
+            f"{model} training layer: B={B} S={S} H={H} K={K} hd={hd} bf16 causal", None,
+            lambda: flash_attention_bwd(q, k, v, o, lse, do),
+            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do),
+            10.0 * B * H * hd * pairs, 2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel(),
+            "bfloat16", lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True),
+            None, compare,
+            counterpart="the reference differentiates ref.attention_ref with XLA's autodiff; "
+                        "no Pallas backward")
 
     def router_row(T, D, E, k, launches, phase, served):
         x = randn((T, D))
@@ -1010,15 +1306,25 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
                moe["served"]["moe_router"])
     gating_row(B * S, m.n_experts, m.top_k, moe["prefill"]["moe_gating"], "prefill")
     gating_row(B, m.n_experts, m.top_k, moe["decode"]["moe_gating"], "decode")
+    # qwen3-1.7b training (phase 8): one layer's attention backward; its
+    # launches and device us per step are phase 8's, filled in there
+    arch, B, S = TRAIN_RUN[:3]
+    t = get_config(arch)
+    bwd_row(arch, B, S, t.n_heads, t.n_kv_heads, t.hd)
     for r in rows:
-        chain = (f", the chain it replaced {r['chain_ms']:.4f} / "
-                 f"{r['chain_ms_read_flush']:.4f} ms" if "chain_ms" in r else "")
-        print(f"  {r['name']}: {r['ms']:.4f} ms, {r['ms_read_flush']:.4f} ms under a read "
-              f"flush (bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{chain}, "
-              f"{r['launches']} launches, served {r['served_us_per_step']} us per decode "
-              f"step) at {r['shape']}")
+        print_row(r)
     return rows
+
+
+def print_row(r):
+    chain = (f", the chain it replaced {r['chain_ms']:.4f} / "
+             f"{r['chain_ms_read_flush']:.4f} ms" if "chain_ms" in r else "")
+    step = "training step" if r["name"] == "flash_attention_bwd" else "decode step"
+    print(f"  {r['name']}: {r['ms']:.4f} ms, {r['ms_read_flush']:.4f} ms under a read "
+          f"flush (bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{chain}, "
+          f"{r['launches']} launches, served {r['served_us_per_step']} us per {step}) "
+          f"at {r['shape']}")
 
 
 def main() -> int:
@@ -1084,6 +1390,14 @@ def main() -> int:
         with Phase("phase 7: kernel times at serving shapes"):
             rows = kernel_table(torch, dev, {"launches": launches, "served": served},
                                 prompt_lengths, hybrid, moe)
+
+        with Phase(f"phase 8: train {TRAIN_RUN[0]} through run_training"):
+            trained = train(torch, np, dev)
+            for r in rows:
+                if r["name"] == "flash_attention_bwd":
+                    r["launches"] = trained["launches"]["flash_attention_bwd"]
+                    r["served_us_per_step"] = trained["served"]["flash_attention_bwd"]
+                    print_row(r)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -22,8 +22,8 @@ __all__ = ["build", "library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("flash_attention.cu", "decode_attention.cu", "moe_gating.cu",
-            "ssd_scan.cu")
+_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
+            "moe_gating.cu", "ssd_scan.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -87,9 +87,12 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
         ptr, i32, i64p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-        lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [
+        lib.flash_attention_fwd.argtypes = [ptr] * 5 + [i32] * 9 + [
             i64p, ctypes.c_float, ptr]
         lib.flash_attention_fwd.restype = i32
+        lib.flash_attention_bwd.argtypes = [ptr] * 10 + [i32] * 9 + [
+            i64p, ctypes.c_float, ptr]
+        lib.flash_attention_bwd.restype = i32
         lib.flash_decode_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, ptr] + [i32] * 8 + [
             i64p, ctypes.c_float, ptr, ptr]
         lib.flash_decode_fwd.restype = i32

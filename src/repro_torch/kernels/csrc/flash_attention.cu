@@ -46,6 +46,13 @@
 // sharing K/V tiles (GQA groups or 128-row tiles), overlapping P V with
 // the next softmax, an output store through shared memory and TMA.
 
+// Log-sum-exp.  With a non-null `lse` pointer both paths also write, for
+// every query row, lse = log(sum_j exp(scale * s_j)) over the keys the row
+// sees (natural log, of the scaled scores: the domain P = exp(scale * s - lse)
+// is recomputed in by the backward, csrc/flash_attention_bwd.cu), f32,
+// (B, H, Sq) contiguous.  Training passes it; serving passes null and runs
+// exactly as before.
+
 // f32 path (phase-2 checks only, not served): the products run on the CUDA
 // cores in full f32, since TF32 would miss the f32 tolerance; one block of 4
 // warps per 64 query rows keeps the softmax state and the accumulator in
@@ -151,7 +158,8 @@ __device__ __forceinline__ void tile_pv(const float* Ps, const float* Vs, float*
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int group,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       int Sq, int Sk, int group,
                        long long qsb, long long qss, long long qsh, long long ksb,
                        long long kss, long long ksh, long long vsb, long long vss,
                        long long vsh, long long osb, long long oss, long long osh,
@@ -243,11 +251,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (q0 + r < Sq)
       o[b * osb + (q0 + r) * oss + h * osh + d] = from_f32<T>(Os[r * SM::kLdO + d] / Ls[r]);
   }
+  // Ms holds the max of the scaled scores, Ls the sum of exp(x - Ms)
+  if (lse && threadIdx.x < BQ && q0 + threadIdx.x < Sq)
+    lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + q0 + threadIdx.x] =
+        Ms[threadIdx.x] + logf(Ls[threadIdx.x]);
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Sk, int H, int K, const long long* st, float scale, int causal,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Sk, int H, int K, const long long* st, float scale, int causal,
                    cudaStream_t stream) {
   using SM = AttnSmem<T, HD>;
   auto kernel = flash_attention_kernel<T, HD>;
@@ -257,7 +269,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, SM::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H / K, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      static_cast<T*>(o), lse, Sq, Sk, H / K, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], scale, causal);
   return cudaGetLastError();
 }
@@ -300,8 +312,9 @@ template <int HD>
 __global__ void __launch_bounds__(NT)
 attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq,
-                      int Sk, int H, int group, long long osb, long long oss, long long osh,
+                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Sk, int H, int group,
+                      long long osb, long long oss, long long osh,
                       float scale_log2, int causal) {
   using SM = Bf16Smem<HD>;
   constexpr int NO = HD / 2;  // output accumulators per thread
@@ -465,6 +478,10 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv = 1.f / sum;
     const int r = q0 + row + 8 * half;
     if (r >= Sq) continue;
+    // m is the row's max raw score; the sum is of 2^((s - m) * scale_log2)
+    if (lse && (lane & 3) == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + r] =
+          (m[half] * scale_log2 + log2f(sum)) * 0.6931471805599453f;
     bf16* orow = o + b * osb + r * oss + h * osh;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
@@ -511,9 +528,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B
 }
 
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                        int Sk, int H, int K, const long long* st, float scale, int causal,
-                        cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int Sq, int Sk, int H, int K, const long long* st, float scale,
+                        int causal, cudaStream_t stream) {
   using SM = Bf16Smem<HD>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, HD, Sq, H, B, st[1], st[2], st[0]) ||
@@ -525,8 +542,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SM::bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(H * B, (Sq + BQ - 1) / BQ);
-  kernel<<<grid, NT, SM::bytes, stream>>>(tq, tk, tv, static_cast<bf16*>(o), Sq, Sk, H, H / K,
-                                          st[9], st[10], st[11],
+  kernel<<<grid, NT, SM::bytes, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Sk, H,
+                                          H / K, st[9], st[10], st[11],
                                           scale * 1.4426950408889634f, causal);
   return cudaGetLastError();
 }
@@ -534,25 +551,27 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 }  // namespace
 
 // strides: q (b, s, h), k (b, s, k), v (b, s, k), o (b, s, h), in elements;
-// the head dim is contiguous.  Returns cudaGetLastError() after the launch.
+// the head dim is contiguous.  lse: null, or (B, H, Sq) f32 to write the
+// log-sum-exp into.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int is_bf16, int device, int B, int Sq, int Sk, int H,
-                                   int K, int hd, int causal, const long long* strides,
-                                   float scale, void* stream) {
+                                   void* lse_out, int is_bf16, int device, int B, int Sq,
+                                   int Sk, int H, int K, int hd, int causal,
+                                   const long long* strides, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (is_bf16 && hd == 128)
-    return launch_bf16<128>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
+    return launch_bf16<128>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (is_bf16 && hd == 80)
-    return launch_bf16<80>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
+    return launch_bf16<80>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (is_bf16 && hd == 64)
-    return launch_bf16<64>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
+    return launch_bf16<64>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (!is_bf16 && hd == 128)
-    return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
+    return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (!is_bf16 && hd == 80)
-    return launch<float, 80>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
+    return launch<float, 80>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (!is_bf16 && hd == 64)
-    return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, K, strides, scale, causal, s);
+    return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
   return cudaErrorInvalidValue;
 }

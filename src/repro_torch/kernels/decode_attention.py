@@ -22,7 +22,7 @@ from typing import Union
 import torch
 
 from ._build import library
-from .flash_attention import _DTYPES, HEAD_DIMS, check_kernel_input
+from .flash_attention import _DTYPES, HEAD_DIMS, check_kernel_input, refuse_grad
 
 __all__ = ["flash_decode", "decode_splits", "MAX_GROUP", "MAX_SPLITS", "TILE"]
 
@@ -51,6 +51,7 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                  length: Union[int, torch.Tensor]) -> torch.Tensor:
     """q: (B,1,H,hd); cache_k/v: (B,Smax,K,hd); length: int, 0-dim or (B,)
     int tensor on q's device -> (B,1,H,hd) in q's dtype."""
+    refuse_grad("flash_decode", q, cache_k, cache_v)
     if q.dim() != 4 or q.shape[1] != 1 or cache_k.dim() != 4 \
             or cache_v.shape != cache_k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} cache {tuple(cache_k.shape)} "

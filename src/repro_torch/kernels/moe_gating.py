@@ -22,6 +22,7 @@ import torch
 
 from ._build import library
 from .decode_attention import _sms
+from .flash_attention import refuse_grad
 
 __all__ = ["moe_gating", "moe_router", "router_plan", "MAX_EXPERTS", "MAX_K", "MAX_D"]
 
@@ -36,6 +37,7 @@ MAX_D = 8192        # the tile kernel's x slab, 80 rows of D/16 f32, fits
 def moe_gating(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits: (T,E) f32, contiguous, on a CUDA device -> (weights (T,k) f32,
     ids (T,k) int32)."""
+    refuse_grad("moe_gating", logits)
     if not logits.is_cuda:
         raise ValueError(f"logits must be a CUDA tensor, got {logits.device}")
     if logits.dim() != 2 or logits.dtype != torch.float32 or not logits.is_contiguous():
@@ -88,6 +90,7 @@ def moe_router(x: torch.Tensor, router: torch.Tensor, k: int
     """x: (T,D) bf16 or f32, router: (D,E) f32, both contiguous on one CUDA
     device, D % 8 == 0 and D <= MAX_D -> (weights (T,k) f32, ids (T,k) int32,
     probabilities (T,E) f32) of the logits ``x.float() @ router``."""
+    refuse_grad("moe_router", x, router)
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) \

@@ -1,8 +1,11 @@
 """The models' one call site for each kernel, dispatched by tensor device.
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
-CPU tensor goes to the plain PyTorch version.  There is no switch that sends
-a CUDA tensor to the plain version.
+CPU tensor goes to the plain PyTorch version, differentiated by autograd.
+There is no switch that sends a CUDA tensor to the plain version.
+``attention`` carries a gradient on the card through the backward kernel;
+the other kernels have no backward yet and raise where autograd would need
+one.
 """
 
 from __future__ import annotations

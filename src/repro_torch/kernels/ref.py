@@ -12,8 +12,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-__all__ = ["attention_ref", "decode_attention_ref", "ssd_state_scan_ref",
-           "moe_gating_ref", "moe_router_ref"]
+__all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref",
+           "decode_attention_ref", "ssd_state_scan_ref", "moe_gating_ref", "moe_router_ref"]
 
 _NEG = -1e30
 
@@ -40,6 +40,56 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, S, H, hd)
+
+
+def _scaled_scores(q: torch.Tensor, k: torch.Tensor, scale: Optional[float]):
+    """(f32 scaled scores (B,K,G,S,T), the causal mask (S,T): True where a
+    query must not see a key, and the scale)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.float().reshape(B, S, K, H // K, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+    return logits, torch.arange(T, device=q.device)[None, :] > qpos, scale
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """The log-sum-exp of each query row's scaled scores over the keys it
+    sees, (B,H,S) f32: what the forward kernel saves for its backward."""
+    logits, masked, _ = _scaled_scores(q, k, scale)
+    if causal:
+        logits = logits.masked_fill(masked, _NEG)
+    B, S, H, _ = q.shape
+    return torch.logsumexp(logits, dim=-1).reshape(B, H, S)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                      lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                      scale: Optional[float] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The closed-form gradient of attention, as the backward kernel computes
+    it, in f32 from the given inputs: P = exp(scale q k^T - lse) (0 where
+    masked), D = rowsum(dO o), dV = P^T dO, dS = P (dO v^T - D),
+    dK = scale dS^T q, dQ = scale dS k, summed over each KV head's group.
+    o and lse are the forward's (B,S,H,hd) output and (B,H,S) log-sum-exp.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    logits, masked, scale = _scaled_scores(q, k, scale)
+    p = torch.exp(logits - lse.float().reshape(B, K, G, S, 1))
+    if causal:
+        p = p.masked_fill(masked, 0.0)
+    dog = do.float().reshape(B, S, K, G, hd)
+    dot = (dog * o.float().reshape(B, S, K, G, hd)).sum(-1)          # (B,S,K,G)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
+    ds = p * (dp - dot.permute(0, 2, 3, 1)[..., None])
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, q.float().reshape(B, S, K, G, hd)) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    return dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, cache_k: torch.Tensor,

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import library
+from .flash_attention import refuse_grad
 
 __all__ = ["ssd_state_scan"]
 
@@ -32,6 +33,7 @@ def ssd_state_scan(chunk_states: torch.Tensor, chunk_decays: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """chunk_states: (B,C,H,P,N); chunk_decays: (B,C,H); init_state:
     (B,H,P,N) or None (zeros) -> (prefix (B,C,H,P,N), final (B,H,P,N))."""
+    refuse_grad("ssd_state_scan", chunk_states, chunk_decays, init_state)
     if chunk_states.dim() != 5:
         raise ValueError(f"chunk_states must be (B,C,H,P,N), got {tuple(chunk_states.shape)}")
     B, C, H, P, N = chunk_states.shape

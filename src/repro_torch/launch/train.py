@@ -1,0 +1,62 @@
+"""Training entry point, direct mode: run the trainer here, checkpoints in
+an in-memory lake.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lidc-demo --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lidc-demo --smoke \
+        --steps 20 --device cpu
+
+Weights are random, drawn from a seeded ``torch.Generator``.  Runs on CUDA
+unless ``--device cpu`` is given; with no GPU and no ``--device`` it fails.
+The reference's second mode, ``--via-lidc`` (the job placed by the LIDC
+overlay), needs the port's executors, which are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="lidc-demo")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--remat", default="none", choices=["none", "dots", "full"])
+    ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--run-name", default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--via-lidc", action="store_true",
+                    help="submit through the LIDC overlay (not ported yet)")
+    args = ap.parse_args()
+
+    if args.via_lidc:
+        print("--via-lidc: the LIDC executors do not run the PyTorch port yet "
+              "(ROADMAP Queue 1 item 5); use the direct mode", file=sys.stderr)
+        return 2
+
+    from .. import resolve_device
+    from ..configs.base import get_config, smoke_of
+    from ..lake import MemoryLake
+    from ..train.trainer import run_training
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    cfg = smoke_of(args.arch) if args.smoke else get_config(args.arch)
+    res = run_training(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                       lake=MemoryLake(), run_name=args.run_name or f"cli-{cfg.arch_id}",
+                       ckpt_every=args.ckpt_every, lr=args.lr,
+                       remat=args.remat, microbatch=args.microbatch, device=device,
+                       on_step=lambda s, l: print(f"step {s:5d} loss {l:.4f}"))
+    print(f"done: {res.steps_done} steps on {device}, final loss {res.final_loss:.4f}, "
+          f"{res.wall_time:.1f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

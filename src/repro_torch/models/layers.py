@@ -16,13 +16,14 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
 __all__ = [
     "RMSNorm", "Embed", "Attention", "MLP", "init_weights_", "rms_norm", "silu",
     "embed_lookup", "rope_freqs", "apply_rope", "attention_block",
-    "attention_decode", "mlp_block",
+    "attention_decode", "mlp_block", "cross_entropy_loss", "chunked_lm_loss",
 ]
 
 Offset = Union[int, torch.Tensor]
@@ -226,3 +227,43 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
 def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU."""
     return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy in f32.  logits (B,S,V), labels (B,S)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    loss = lse - gold
+    if z_loss > 0:
+        loss = loss + z_loss * lse ** 2
+    return torch.mean(loss)
+
+
+def _chunk_loss(xc: torch.Tensor, w_out: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+    logits = (xc @ w_out).float()           # the product in the parameter dtype
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_lm_loss(x: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy over the vocab projection without the whole (B, S, V)
+    logits in f32: each sequence chunk is projected and reduced under
+    ``torch.utils.checkpoint``, so its logits are recomputed in the backward
+    pass.  x: (B, S, D) final hidden; w_out: (D, V); labels: (B, S).
+    Chunked only where the JAX version chunks: S % chunk == 0, S > chunk."""
+    B, S, _ = x.shape
+    if S % chunk != 0 or S <= chunk:
+        return cross_entropy_loss(x @ w_out, labels)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S, chunk):
+        total = total + checkpoint(_chunk_loss, x[:, c:c + chunk], w_out,
+                                   labels[:, c:c + chunk], use_reentrant=False)
+    return total / (B * S)

@@ -1,9 +1,11 @@
-"""Model interface: config -> {init, apply, prefill, decode_step, init_cache}.
+"""Model interface: config -> {init, loss_fn, apply, prefill, decode_step,
+init_cache}, the input specs of a cell, and its analytic FLOPs.
 
 The port's counterpart of ``repro/models/model.py`` for the families it has
 ported so far: the dense decoder, the MoE decoder and the Mamba2 hybrid.
-Other families (``vlm`` included, which the JAX package runs on the dense
-decoder) raise until their slice lands.
+The MoE and hybrid families serve but do not train yet (their kernels have
+no backward); other families (``vlm`` included, which the JAX package runs
+on the dense decoder) raise until their slice lands.
 """
 
 from __future__ import annotations
@@ -12,12 +14,15 @@ import functools
 import math
 from dataclasses import dataclass
 from types import ModuleType
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
+import torch
+
+from .. import resolve_device
 from ..configs.base import ArchConfig, ShapeConfig
 
 __all__ = ["ModelBundle", "PORTED_FAMILIES", "bundle_for", "model_module", "param_count",
-           "memory_estimate"]
+           "memory_estimate", "input_specs", "synth_batch", "model_flops"]
 
 PORTED_FAMILIES = ("dense", "moe", "hybrid")
 
@@ -26,6 +31,7 @@ PORTED_FAMILIES = ("dense", "moe", "hybrid")
 class ModelBundle:
     family: str
     init: Callable
+    loss_fn: Callable
     apply: Callable
     prefill: Callable
     decode_step: Callable
@@ -47,9 +53,17 @@ def model_module(cfg: ArchConfig) -> ModuleType:
     return m
 
 
+def _loss_not_ported(cfg: ArchConfig, *args, **kwargs):
+    raise NotImplementedError(
+        f"training the {cfg.family} family is not ported yet: its kernels "
+        f"({'moe_router' if cfg.family == 'moe' else 'ssd_state_scan'}) have no backward; "
+        "see ROADMAP (Queue 2)")
+
+
 def bundle_for(cfg: ArchConfig) -> ModelBundle:
     m = model_module(cfg)
-    return ModelBundle(cfg.family, m.init, m.apply, m.prefill, m.decode_step,
+    loss_fn = m.loss_fn if cfg.family == "dense" else _loss_not_ported
+    return ModelBundle(cfg.family, m.init, loss_fn, m.apply, m.prefill, m.decode_step,
                        m.init_cache)
 
 
@@ -66,6 +80,74 @@ def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
     if active_only and cfg.is_moe:
         n -= (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.d_ff * cfg.n_layers
     return n
+
+
+# ---------------------------------------------------------------------------
+# input specs: meta tensors (shape and dtype, no storage), the port's
+# counterpart of the reference's ShapeDtypeStructs
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Every model input of this (arch, shape) cell as a meta tensor: token
+    and label batches (train), the prompt batch (prefill), or one new token
+    and the whole cache at ``seq_len`` (decode)."""
+    m = model_module(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": _spec((B, S), torch.int32), "labels": _spec((B, S), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": _spec((B, S), torch.int32)}
+    if shape.kind == "decode":
+        return {"tokens": _spec((B, 1), torch.int32),
+                "cache": m.init_cache(cfg, B, S, device="meta")}
+    raise ValueError(shape.kind)
+
+
+def synth_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0, *,
+                device=None) -> Dict[str, Any]:
+    """Real (small!) tensors matching ``input_specs``, for smoke tests: token
+    ids uniform in the vocab from a ``torch.Generator`` seeded with
+    ``seed`` (the reference draws from a JAX key, so the values differ), a
+    zeroed cache."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    out: Dict[str, Any] = {}
+    for name, spec in input_specs(cfg, shape).items():
+        if name == "cache":
+            out[name] = model_module(cfg).init_cache(cfg, shape.global_batch, shape.seq_len,
+                                                     device=device)
+        elif spec.dtype.is_floating_point:
+            out[name] = torch.randn(spec.shape, generator=gen).to(spec.dtype).to(device)
+        else:
+            out[name] = torch.randint(0, cfg.vocab, spec.shape, generator=gen,
+                                      dtype=spec.dtype).to(device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# analytic model FLOPs (the utilization ratio's numerator)
+# ---------------------------------------------------------------------------
+
+def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS = 6·N·D (train) / 2·N·D (inference forward), N the active
+    parameters, D the tokens processed, plus the quadratic attention term
+    where the family has one (the reference's formula)."""
+    N = param_count(cfg, active_only=True)
+    hd, H, Lc = cfg.hd, cfg.n_heads, cfg.n_layers
+    B, S = shape.global_batch, shape.seq_len
+    n_attn = {"dense": Lc, "vlm": Lc, "moe": Lc, "encdec": Lc,
+              "hybrid": Lc // cfg.attn_every if cfg.attn_every else 0}.get(cfg.family, 0)
+    if shape.kind == "train":
+        # causal QK^T + PV, forward and backward (12 = 2 products * 2 flops * 3)
+        return 6.0 * N * shape.tokens + 12.0 * n_attn * B * H * hd * S ** 2 / 2
+    if shape.kind == "prefill":
+        return 2.0 * N * shape.tokens + 4.0 * n_attn * B * H * hd * S ** 2 / 2
+    # decode: one token per sequence and attention against the cache
+    return 2.0 * N * B + 4.0 * n_attn * B * H * hd * S
 
 
 def memory_estimate(cfg: ArchConfig, shape: ShapeConfig, chips: int,

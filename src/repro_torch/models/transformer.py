@@ -1,5 +1,6 @@
 """Dense decoder-only transformer (qwen3 / phi4 / qwen2 / lidc-demo), ported
-from ``repro/models/transformer.py`` for serving: init, prefill, decode.
+from ``repro/models/transformer.py``: init, the training loss (with the
+reference's remat policies), prefill, decode.
 
 The JAX version stacks the layers along a leading dim and scans; here each
 layer is its own ``Block`` in an ``nn.ModuleList`` and a Python loop runs
@@ -10,18 +11,22 @@ MoE family reuses the skeleton with its own block and feed-forward
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import layers as L
 
-__all__ = ["Block", "Transformer", "Model", "init", "init_cache",
-           "block_fwd", "apply", "logits_of", "prefill", "decode_step"]
+__all__ = ["Block", "Transformer", "Model", "init", "init_cache", "block_fwd", "hidden",
+           "apply", "logits_of", "lm_loss", "loss_fn", "prefill", "decode_step",
+           "REMAT_POLICIES"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -112,13 +117,63 @@ def block_fwd(cfg: ArchConfig, blk: nn.Module, x: torch.Tensor, ffn: Ffn = _mlp
     return x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
 
 
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the products with no batch dims (``x @ w``, which reaches the
+    dispatcher as ``mm``), recompute everything else, attention included:
+    the reference's ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn: Callable, remat: str) -> Callable:
+    """``fn`` as the reference's ``_remat_wrap`` runs it: as is ("none"),
+    recomputed whole in the backward pass ("full"), or keeping only the
+    matrix products' outputs ("dots")."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {remat!r}; the port has {REMAT_POLICIES}")
+
+
+def hidden(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
+           remat: str = "none") -> torch.Tensor:
+    """Embedding and every block: tokens (B, S) -> hidden (B, S, D).  Runs
+    under autograd unless the caller turns it off."""
+    x = L.embed_lookup(params.embed, tokens)
+    body = _remat_wrap(functools.partial(block_fwd, cfg), remat)
+    for blk in params.blocks:
+        x = body(blk, x)
+    return x
+
+
 @torch.no_grad()
 def apply(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Full forward: tokens (B, S) -> logits (B, S, V)."""
-    x = L.embed_lookup(params.embed, tokens)
-    for blk in params.blocks:
-        x = block_fwd(cfg, blk, x)
-    return logits_of(cfg, params, x)
+    return logits_of(cfg, params, hidden(cfg, params, tokens))
+
+
+def lm_loss(cfg: ArchConfig, params: Transformer, x: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Final norm and the chunked cross-entropy (never the whole (B,S,V)
+    logits in f32)."""
+    x = L.rms_norm(params.final_norm.w, x, cfg.norm_eps)
+    return L.chunked_lm_loss(x, _out_proj(cfg, params), labels)
+
+
+def loss_fn(cfg: ArchConfig, params: Transformer, batch: Dict[str, torch.Tensor], *,
+            remat: str = "none") -> torch.Tensor:
+    """Mean next-token loss of ``batch`` ({"tokens", "labels"}, (B, S))."""
+    x = hidden(cfg, params, batch["tokens"], remat=remat)
+    return lm_loss(cfg, params, x, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Serving and (later) training steps over the model bundles."""
+"""Serving and training steps over the model bundles, and the trainer."""

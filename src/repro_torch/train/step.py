@@ -1,21 +1,97 @@
-"""Serve steps over a model bundle, ported from the serve half of
-``repro/train/step.py`` (``make_prefill``, ``make_serve_step``): the entry
-point through which the JAX package serves the families its
-``ServeEngine`` does not take (MoE, hybrid).  The training half lands with
-the training slice; the encoder-decoder input form with its family.
+"""Train and serve steps over a model bundle, ported from
+``repro/train/step.py``.
+
+The train step is loss -> gradients -> AdamW, with the reference's remat
+policies and microbatch accumulation in f32.  It runs eagerly: there is no
+``jit``, and the parameters and moments are updated in place.  The
+cross-pod gradient compression (``compress_pods``) needs a multi-device
+mesh and stays out.  The serve steps are the entry point through which the
+JAX package serves the families its ``ServeEngine`` does not take (MoE,
+hybrid); the encoder-decoder input form lands with its family.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
-from ..models.model import bundle_for
+from ..models.model import bundle_for, model_module
+from ..models.transformer import dtype_of
+from ..optim.adamw import AdamW
 
-__all__ = ["make_prefill", "make_serve_step"]
+__all__ = ["make_train_state", "train_state_shape", "make_train_step", "make_prefill",
+           "make_serve_step"]
 
+State = Dict[str, Any]   # {"params": the model, "opt": AdamWState}
+Batch = Dict[str, torch.Tensor]
+
+
+def make_train_state(cfg: ArchConfig, seed: int, optimizer: AdamW, *,
+                     device=None) -> State:
+    """Random parameters (``bundle.init`` with ``seed``), requiring grad, and
+    zeroed f32 moments, on ``device`` (the card unless told otherwise)."""
+    params = bundle_for(cfg).init(cfg, seed, device=device)
+    params.requires_grad_(True)
+    return {"params": params, "opt": optimizer.init(params)}
+
+
+def train_state_shape(cfg: ArchConfig, optimizer: AdamW) -> State:
+    """The train state on the meta device: every shape and dtype, no storage
+    (the reference's ``eval_shape`` of it)."""
+    params = model_module(cfg).Model(cfg, device="meta", dtype=dtype_of(cfg))
+    params.requires_grad_(True)
+    return {"params": params, "opt": optimizer.init(params)}
+
+
+def _split_microbatches(batch: Batch, n: int) -> List[Batch]:
+    B = next(iter(batch.values())).shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} does not split into {n} microbatches")
+    return [{k: x[i * (B // n):(i + 1) * (B // n)] for k, x in batch.items()}
+            for i in range(n)]
+
+
+def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, remat: str = "none",
+                    microbatch: int = 1) -> Callable[[State, Batch], Tuple[State, Dict]]:
+    """``train_step(state, batch)`` -> (state, {"loss", "grad_norm", "lr"},
+    0-dim tensors).  With ``microbatch`` > 1 the batch is split along its
+    first dim and the gradients are summed in f32, then averaged, as the
+    reference's scan does."""
+    bundle = bundle_for(cfg)
+
+    def loss_and_grads(params, batch: Batch):
+        leaves = list(params.parameters())
+        loss = bundle.loss_fn(cfg, params, batch, remat=remat)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def grads_of(params, batch: Batch):
+        if microbatch <= 1:
+            return loss_and_grads(params, batch)
+        tot_loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        tot_g: Optional[List[torch.Tensor]] = None
+        for mb in _split_microbatches(batch, microbatch):
+            loss, grads = loss_and_grads(params, mb)
+            if tot_g is None:
+                tot_g = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                         for g in grads]
+            tot_g = [a + g.float() for a, g in zip(tot_g, grads)]
+            tot_loss = tot_loss + loss
+        inv = 1.0 / microbatch
+        return tot_loss * inv, [g * inv for g in tot_g]
+
+    def train_step(state: State, batch: Batch) -> Tuple[State, Dict[str, torch.Tensor]]:
+        loss, grads = grads_of(state["params"], batch)
+        opt, metrics = optimizer.update(grads, state["opt"], state["params"])
+        return {"params": state["params"], "opt": opt}, {"loss": loss, **metrics}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
 
 def make_prefill(cfg: ArchConfig) -> Callable:
     """``prefill(params, {"tokens": (B, S)}, max_seq=None)`` -> (last-position

@@ -5,8 +5,8 @@ This file imports no JAX, so it also runs on a GPU machine without it:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 3e-2 in bf16;
-decode outputs are also held row by row to a share of each row's size, as
-in chip_smoke.py.  ``moe_router`` sums its logits in another order than
+decode outputs and attention gradients are also held row by row to a share
+of each row's size, as in chip_smoke.py.  ``moe_router`` sums its logits in another order than
 cuBLAS, so its ids are compared tie-aware, as in chip_smoke.py: at every
 rank the kernel's expert must have a plain probability within
 ROUTER_TIE_DELTA of the plain choice's.
@@ -18,13 +18,15 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import flash_decode
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                 flash_attention_fwd)
 from repro_torch.kernels.moe_gating import moe_gating, moe_router
 from repro_torch.kernels.ssd_scan import ssd_state_scan
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DECODE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # as chip_smoke.py
 ROUTER_TIE_DELTA = 1e-4                                # as chip_smoke.py
+GRAD_ROW_TOL = {"float32": 1e-3, "bfloat16": 2e-2}     # as chip_smoke.py
 
 
 @pytest.fixture
@@ -89,6 +91,137 @@ def test_flash_attention_kernel_reads_strided_views(cuda_device, dtype, hd):
     q, k, v = qp[..., :hd], kk[1], vv[1]
     assert not q.is_contiguous()
     _assert_close(flash_attention(q, k, v), ref.attention_ref(q, k, v), dtype)
+
+
+BWD_CASES = [  # (B, Sq, Sk, H, K, hd, causal), as chip_smoke.py's phase 2
+    (4, 256, 256, 16, 8, 128, True),      # qwen3-1.7b heads (the training step's group 2)
+    (1, 200, 200, 16, 8, 128, True),      # ragged: 200 = 3 tiles + 8 rows
+    (1, 17, 200, 16, 8, 128, True),       # Sq < Sk: queries are the last 17
+    (1, 150, 211, 32, 32, 80, True),      # head dim 80, group 1, ragged Sq and Sk tails
+    (2, 300, 300, 32, 4, 128, True),      # group 8
+    (2, 65, 130, 14, 2, 64, True),        # head dim 64, group 7
+    (1, 65, 33, 16, 8, 128, False),
+    *((1, Sq, Sq + extra, 16, 8, 64, True) for Sq in (1, 63, 64, 65, 129)
+      for extra in (0, 100)),
+]
+
+
+def _bwd_inputs(seed, B, Sq, Sk, H, K, hd, causal, dtype, device):
+    q, k, v, do = _randn(seed, (B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd), (B, Sq, H, hd),
+                         dtype=dtype, device=device)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+def grad_row_rel_err(out, want, tol):
+    """As chip_smoke.py reads it: max over rows (a query's or a key's head vector) of |out - want| /
+    max(|want|, 0.1 x the median row's |want|), Euclidean norms; None where
+    the median row is below ``tol`` x sqrt(hd), the size of a row of
+    elementwise-tolerance errors (every row a sum that cancels to about
+    nothing, as dq where each query sees one key): the elementwise bound
+    holds such a tensor alone."""
+    out, want = out.float().flatten(0, -2), want.float().flatten(0, -2)
+    norm = want.norm(dim=-1)
+    median = float(norm.median())
+    if median < tol * want.shape[-1] ** 0.5:
+        return None
+    return float(((out - want).norm(dim=-1) / norm.clamp(min=0.1 * median)).max())
+
+
+def _assert_grad_rows_close(out, want, dtype):
+    rel = grad_row_rel_err(out, want, TOL[dtype])
+    assert rel is None or rel <= GRAD_ROW_TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, B, Sq, Sk, H, K, hd,
+                                                  causal):
+    q, k, v, o, lse, do = _bwd_inputs(7, B, Sq, Sk, H, K, hd, causal, dtype, cuda_device)
+    torch.testing.assert_close(lse, ref.attention_lse_ref(q, k, causal=causal),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    _assert_close(o, ref.attention_ref(q, k, v, causal=causal), dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert flash_attention_bwd.launches == before + 1
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _assert_close(g, w, dtype)
+        _assert_grad_rows_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [80, 128])
+def test_flash_attention_bwd_kernel_reads_strided_views(cuda_device, dtype, hd):
+    B, S, H, K = 2, 140, 8, 4
+    qp, kk, vv, dop = _randn(5, (B, S, H, hd + 8), (2, B, S, K, hd), (2, B, S, K, hd),
+                             (B, S, H, hd + 8), dtype=dtype, device=cuda_device)
+    q, k, v, do = qp[..., :hd], kk[1], vv[1], dop[..., :hd]
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        _assert_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_gradient_goes_through_the_backward_kernel(cuda_device, dtype):
+    """``ops.attention`` on CUDA tensors that require grad: one forward and
+    one backward launch, the gradients those of the plain version; without
+    grad (serving) one forward launch and no backward."""
+    q, k, v, do = _randn(8, (2, 130, 16, 128), (2, 130, 8, 128), (2, 130, 8, 128),
+                         (2, 130, 16, 128), dtype=dtype, device=cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    o = ops.attention(*leaves)
+    assert o.grad_fn is not None
+    got = torch.autograd.grad(o, leaves, do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    o2, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    torch.testing.assert_close(o.detach(), o2, atol=0, rtol=0)
+    for g, w in zip(got, ref.attention_bwd_ref(q, k, v, o2, lse, do)):
+        _assert_close(g, w, dtype)
+    with torch.no_grad():
+        fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+        assert ops.attention(*leaves).grad_fn is None
+        assert (flash_attention.launches, flash_attention_bwd.launches) == (fwd + 1, bwd)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_is_bit_repeatable(cuda_device):
+    inputs = _bwd_inputs(9, 2, 300, 300, 16, 8, 128, True, "bfloat16", cuda_device)
+    first = flash_attention_bwd(*inputs)
+    for g, h in zip(first, flash_attention_bwd(*inputs)):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda_device):
+    """A kernel whose output would carry no gradient raises instead of
+    training nothing upstream of it; under no_grad it runs."""
+    q, ck, cv = _randn(10, (2, 1, 16, 128), (2, 64, 8, 128), (2, 64, 8, 128),
+                       dtype="bfloat16", device=cuda_device)
+    logits = torch.randn((4, 128), device=cuda_device)
+    x = torch.randn((4, 2048), device=cuda_device).to(torch.bfloat16)
+    router = torch.randn((2048, 128), device=cuda_device) * 2048 ** -0.5
+    xs = torch.randn((1, 3, 4, 16, 16), device=cuda_device)
+    decays = torch.rand((1, 3, 4), device=cuda_device)
+    calls = {
+        "flash_decode": lambda g: flash_decode(g(q), ck, cv, 8),
+        "moe_gating": lambda g: moe_gating(g(logits), 8),
+        "moe_router": lambda g: moe_router(x, g(router), 8),
+        "ssd_state_scan": lambda g: ssd_state_scan(g(xs), decays),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no backward yet; see ROADMAP"):
+            call(lambda t: t.clone().requires_grad_())
+        with torch.no_grad():
+            call(lambda t: t.clone().requires_grad_())
+        call(lambda t: t)
 
 
 @pytest.mark.cuda

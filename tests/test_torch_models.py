@@ -248,7 +248,9 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.launch.serve, repro_torch.kernels.ops, repro_torch.models.moe, "
             "repro_torch.models.mamba2, repro_torch.models.hybrid, "
             "repro_torch.train.step, repro_torch.kernels.moe_gating, "
-            "repro_torch.kernels.ssd_scan; "
+            "repro_torch.kernels.ssd_scan, repro_torch.train.trainer, "
+            "repro_torch.launch.train, repro_torch.ckpt.checkpoint, "
+            "repro_torch.data.pipeline, repro_torch.optim, repro_torch.lake; "
             "bad = sorted(m for m, mod in sys.modules.items() if mod is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))); print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
