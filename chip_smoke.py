@@ -14,9 +14,10 @@
    at the qwen3-moe shapes, ids compared up to near ties and exactly where
    router columns repeat; the SSD state scan with and without an initial
    state; the attention backward at head dims 64, 80 and 128, GQA groups 1,
-   2, 7 and 8, Sq = Sk and Sq < Sk, ragged tails around the 64-row tile and
-   strided views, in f32 and bf16, against its plain closed form, and the
-   forward's log-sum-exp);
+   2, 7 and 8, Sq = Sk and Sq < Sk, ragged tails around the 64-row tile
+   (Sq and Sk at 63-65 and 127-129), Sq % 4 != 0 and strided views, in f32
+   and bf16, against its plain closed form, and the forward's
+   log-sum-exp);
 3. serves qwen3-1.7b at full width and depth (random weights from a seeded
    ``torch.Generator``) through ``ServeEngine``: 12 requests, prompts of
    8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots; then one
@@ -211,7 +212,8 @@ def kernels():
 # profiler reports them
 KERNEL_SYMBOLS = {
     "flash_attention": ("attention_bf16_kernel", "flash_attention_kernel"),
-    "flash_attention_bwd": ("bwd_dot_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"),
+    "flash_attention_bwd": ("bwd_dot_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel",
+                            "bwd_dkdv_kernel", "bwd_dq_kernel"),
     "flash_decode": ("flash_decode_",),
     "moe_gating": ("moe_gating_kernel",),
     "moe_router": ("moe_router_kernel", "moe_router_decode_kernel"),
@@ -323,6 +325,21 @@ BWD_CASES = [  # (B, Sq, Sk, H, K, hd, causal[, "strided"])
     # q and dO views with padded heads, k/v a layer of a stacked tensor
     (2, 140, 140, 8, 4, 128, True, "strided"),
     (2, 140, 140, 8, 4, 80, True, "strided"),
+    # the wgmma kernels' tile edges at hd 128 and 80: Sq = Sk around one and
+    # two 64-row tiles, causal and not; Sq != Sk across a tile edge
+    *((1, S, S, 4, 2, hd, causal) for S in (63, 64, 65, 127, 128, 129) for hd in (128, 80)
+      for causal in (True, False)),
+    *((1, Sq, Sk, 4, 2, hd, causal) for Sq, Sk in ((63, 129), (65, 128), (127, 129), (64, 65))
+      for hd in (128, 80) for causal in (True, False)),
+    *((1, Sq, Sk, 4, 2, hd, False) for Sq, Sk in ((129, 63), (128, 65)) for hd in (128, 80)),
+    # Sq % 4 != 0 with Sk > Sq: LSE and D rows that start off a 16-byte line
+    (2, 65, 129, 8, 4, 128, True),
+    (1, 17, 131, 8, 2, 80, True),
+    (1, 127, 300, 16, 8, 128, True),
+    (4, 200, 200, 32, 4, 128, True),       # group 8 at B = 4
+    # strided q and dO at hd 80 through the tensor maps, ragged tiles
+    (1, 129, 129, 8, 4, 80, True, "strided"),
+    (2, 65, 130, 8, 4, 80, True, "strided"),
 ]
 
 DECODE_CASES = [  # (B, Smax, H, K, hd, lengths)
@@ -716,6 +733,12 @@ def profile_steps(torch, step, label, spans=(), n=PROFILE_STEPS):
                  for w, syms in KERNEL_SYMBOLS.items()}
     print(f"  repo kernels, device us per step: "
           f"{ {w: round(us, 2) for w, us in kernel_us.items()} }")
+    for w, syms in KERNEL_SYMBOLS.items():
+        parts = {sym: 1e3 / n * sum(ms for name, ms in by_name.items() if sym in name)
+                 for sym in syms}
+        if sum(us > 0 for us in parts.values()) > 1:
+            print(f"    {w} by kernel, device us per step: "
+                  f"{ {sym: round(us, 2) for sym, us in parts.items() if us > 0} }")
     for name, us in span_us.items():
         print(f"  range {name!r}: device {us:.2f} us per step" if us else
               f"  range {name!r}: device time not measured (no kernel ran inside it)")
@@ -1217,7 +1240,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
                 r is None or r <= GRAD_ROW_TOL["bfloat16"] for r in rels))
 
         # bytes: q, k, v, o, dO and lse read once; dq, dk, dv written once
-        add("flash_attention_bwd", "flash_attention_bwd.cu",
+        add("flash_attention_bwd", "flash_attention_bwd_sm90.cu",
             "src/repro/kernels/flash_attention.py:94",
             f"{model} training layer: B={B} S={S} H={H} K={K} hd={hd} bf16 causal", None,
             lambda: flash_attention_bwd(q, k, v, o, lse, do),

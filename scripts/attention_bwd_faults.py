@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Plant faults in the attention backward kernel and read them with the
-checks of ``chip_smoke.py`` phase 2, on one GPU.
+"""Plant faults in the bf16 attention backward kernels and read them with
+the checks of ``chip_smoke.py`` phase 2, on one GPU.
 
     python3 scripts/attention_bwd_faults.py
 
-Each variant is compiled from a patched copy of
-``src/repro_torch/kernels/csrc/flash_attention_bwd.cu`` under
-``kernels/_build/variants/``; the checked-in source is never changed.  For
-every case of phase 2's ``BWD_CASES`` (the strided ones as contiguous
-tensors; the sound kernel in f32 and bf16, each fault in bf16) the
-script prints the two readings phase 2 checks on
-dq, dk and dv against ``ref.attention_bwd_ref``: the largest elementwise
-error (limit atol = rtol = ``chip_smoke.TOL``) and the largest error of one
-row relative to its size (``chip_smoke.grad_row_rel_err``, limit
-``GRAD_ROW_TOL``), then how many cases each limit catches.  A limit is
+Each variant is a library compiled from a patched copy of
+``src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu`` (the wgmma
+dK/dV and dQ kernels) and the unchanged ``flash_attention_bwd.cu`` (the C
+entry, D and the f32 path) under ``kernels/_build/variants/``; the
+checked-in sources are never changed.  For every case of phase 2's
+``BWD_CASES`` (the strided ones as contiguous tensors; the sound kernel in
+f32 and bf16, each fault in bf16) the script prints the two readings phase 2
+checks on dq, dk and dv against ``ref.attention_bwd_ref``: the largest
+elementwise error (limit atol = rtol = ``chip_smoke.TOL``) and the largest
+error of one row relative to its size (``chip_smoke.grad_row_rel_err``,
+limit ``GRAD_ROW_TOL``), then how many cases each limit catches.  A limit is
 useful where it lies above the sound kernel's readings and below the
 faults'.
 """
@@ -32,24 +33,37 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as smoke  # noqa: E402  (stdlib only at import)
 
-SOURCE = "flash_attention_bwd.cu"
+SOURCE = "flash_attention_bwd_sm90.cu"
+ENTRY = "flash_attention_bwd.cu"   # compiled unchanged beside each variant
 
-# (name, [(text in flash_attention_bwd.cu, replacement), ...])
+# (name, [(text in SOURCE, replacement), ...]); no patch changes how many
+# tiles a ring loads and waits for, so a variant cannot hang
 FAULTS = [
     ("dK/dV pass leaves out the last query tile",
-     [("for (int qt = first; qt < n_qtiles; ++qt) {",
-       "for (int qt = first; qt < n_qtiles - (n_qtiles > first + 1); ++qt) {")]),
+     [("const int nq = n_qtiles - first;",
+       "const int nq = n_qtiles - first - (n_qtiles > first + 1);")]),
     ("dK/dV pass leaves out the group's last query head",
-     [("for (int g = 0; g < group; ++g) {",
-       "for (int g = 0; g < (group > 1 ? group - 1 : 1); ++g) {")]),
+     [("const int n_pairs = group * nq;",
+       "const int n_pairs = (group > 1 ? group - 1 : 1) * nq;")]),
     ("causal mask one key late",
-     [("!(causal && kpos > qpos);", "!(causal && kpos > qpos + 1);")]),
+     [("!(causal && kj > qi + off);", "!(causal && kj > qi + off + 1);")]),
     ("D left out of dS",
-     [("dSs[i * kLdT + j] = p * (dp[r][c] - D_s[i]);", "dSs[i * kLdT + j] = p * dp[r][c];")]),
+     [("return p * (dp - d);", "return p * dp;")]),
     ("dQ pass skips the second key tile",
-     [("for (int k0 = 0; k0 < n_keys; k0 += BT) {",
-       "for (int k0 = 0; k0 < n_keys; k0 += (k0 == 0 && n_keys > 2 * BT ? 2 * BT : BT)) {")]),
+     [("issue_acc<HD>(acc, dsa, k_stage(s));",
+       "if (t != 1 || n_tiles <= 2) issue_acc<HD>(acc, dsa, k_stage(s));")]),
 ]
+
+# name -> whether a case (B, Sq, Sk, H, K, hd, causal) reaches the fault:
+# a second query tile; a group of two or more; a query that sees a key
+# before the last; any case; a query tile that sees three key tiles
+TOUCHES = {
+    FAULTS[0][0]: lambda B, Sq, Sk, H, K, hd, causal: Sq > 64,
+    FAULTS[1][0]: lambda B, Sq, Sk, H, K, hd, causal: H > K,
+    FAULTS[2][0]: lambda B, Sq, Sk, H, K, hd, causal: causal and Sq >= 2,
+    FAULTS[3][0]: lambda B, Sq, Sk, H, K, hd, causal: True,
+    FAULTS[4][0]: lambda B, Sq, Sk, H, K, hd, causal: Sk > 128,
+}
 
 
 def build_variants(variants):
@@ -71,8 +85,9 @@ def build_variants(variants):
         (d / SOURCE).write_text(text)
         so = d / "libbwd.so"
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-I", str(csrc), "-shared", str(d / SOURCE),
-             "-o", str(so)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [_build._nvcc(), *_build._FLAGS, "-I", str(csrc), "-shared", str(csrc / ENTRY),
+             str(d / SOURCE), "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
         out, _ = proc.communicate()
@@ -104,6 +119,7 @@ def main() -> int:
             gen.manual_seed(0)
             worst_abs = worst_rel = 0.0
             caught_abs = caught_rel = 0
+            touched, missed = 0, []
             for B, Sq, Sk, H, K, hd, causal, *strided in smoke.BWD_CASES:
                 q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dtype)
                                for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd),
@@ -120,13 +136,22 @@ def main() -> int:
                 err = max(e for e, _ in errs)
                 rel = max((r for r in rels if r is not None), default=0.0)
                 worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+                failed = not all(ok for _, ok in errs) or rel > row_tol
                 caught_abs += not all(ok for _, ok in errs)
                 caught_rel += rel > row_tol
+                case = (B, Sq, Sk, H, K, hd, causal)
+                if name in TOUCHES and TOUCHES[name](*case):
+                    touched += 1
+                    if not failed:
+                        missed.append(case)
                 print(f"  [{name}] {dtype_name} B={B} Sq={Sq} Sk={Sk} H={H} K={K} hd={hd} "
                       f"causal={causal}: max_abs_err={err:.3e} row_rel_err={rel:.3e}")
             print(f"[{name}] {dtype_name}: largest max_abs_err {worst_abs:.3e}, largest "
                   f"row_rel_err {worst_rel:.3e}; cases failing atol=rtol={tol}: {caught_abs}, "
                   f"failing row_rel_err <= {row_tol}: {caught_rel} of {len(smoke.BWD_CASES)}")
+            if name in TOUCHES:
+                print(f"[{name}] fails {touched - len(missed)} of the {touched} cases it "
+                      f"touches; passes {missed}")
     return 0
 
 

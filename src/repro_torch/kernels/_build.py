@@ -22,8 +22,8 @@ __all__ = ["build", "library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
-            "moe_gating.cu", "ssd_scan.cu")
+_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
+            "decode_attention.cu", "moe_gating.cu", "ssd_scan.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 

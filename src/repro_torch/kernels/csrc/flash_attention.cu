@@ -58,14 +58,14 @@
 // warps per 64 query rows keeps the softmax state and the accumulator in
 // shared memory.
 
-#include <cuda.h>  // CUtensorMap; the driver function itself is found at run time
-
 #include "common.cuh"
 #include "sm90.cuh"
+#include "tma_host.cuh"
 
 using repro_torch::from_f32;
 using repro_torch::kNegInf;
 using repro_torch::Tile;
+using repro_torch::tma::make_map;
 
 namespace {
 
@@ -294,6 +294,7 @@ struct Bf16Smem {
   // one V stage at HD 80 keeps a block at 65 KB, so three share an SM
   static constexpr int kVStages = HD == 80 ? 1 : 2;
   static_assert(BQ == BK, "Q and K/V tiles share one swizzled layout");
+  static_assert(BK == repro_torch::tma::kBoxRows, "a tile is one box of the tensor map");
   static constexpr int q = 0;
   static constexpr int k = q + kTile;
   static constexpr int v = k + 2 * kTile;
@@ -307,7 +308,7 @@ __device__ __forceinline__ uint64_t kmajor_slice(uint32_t tile, int kk) {
   return sm90::desc_sw128(tile + (kk >> 2) * (BK * 128) + (kk & 3) * 32, 16, 1024);
 }
 
-// tq, tk, tv: (hd, S, heads, B) tensor maps of q, k, v (make_map below).
+// tq, tk, tv: (hd, S, heads, B) tensor maps of q, k, v (tma_host.cuh).
 template <int HD>
 __global__ void __launch_bounds__(NT)
 attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
@@ -488,43 +489,6 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col) = __floats2bfloat162_rn(
           acc[4 * j + 2 * half] * inv, acc[4 * j + 2 * half + 1] * inv);
   }
-}
-
-// cuTensorMapEncodeTiled, looked up in the driver at run time, so that the
-// library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &res) == cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The (hd, S, heads, B) view of a (B,S,heads,hd) bf16 tensor with element
-// strides ss, sh, sb, cut into 64 x 64 boxes with the 128-byte swizzle.
-// Rows past S and columns past hd read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B, long long ss,
-              long long sh, long long sb) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(S), cuuint64_t(heads), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {64, BK, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>

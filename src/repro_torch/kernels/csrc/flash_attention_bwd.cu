@@ -21,26 +21,35 @@
 // once.  One qwen3-1.7b layer of the training step (B=4, S=1024, H=16, K=8,
 // hd 128) is bound by operations: 43 GFLOP, 43.5 us in bf16.
 //
-// Design: right and simple first, no tensor cores yet.  Three launches:
+// Three launches, in both paths:
 //  1. bwd_dot_kernel: D = rowsum(dO * O) in f32, one warp per row.
-//  2. bwd_dkdv_kernel: one block of 256 threads per (64-key tile, KV head,
-//     batch).  K and V stay in shared memory; the block walks every query
+//  2. dK/dV per (64-key tile, KV head, batch): the block walks every query
 //     head of the group and every 64-row query tile that can see its keys,
 //     recomputes P and dS for the tile pair and accumulates dV and dK in
 //     registers.  The group's sum stays inside the block: no atomics, so a
 //     step is bit-repeatable.
-//  3. bwd_dq_kernel: one block per (64-row query tile, head, batch); Q and
-//     dO stay in shared memory, the block walks the key tiles its rows see
-//     (the forward's loop) and accumulates dQ in registers.
-// Products run on the CUDA cores in f32 (tiles converted to f32 as they
-// land in shared memory): 4x4 register tiles for the 64x64 score-shaped
-// products, 4 rows x hd/16 columns for the hd-wide ones.  Rows are padded by
-// 16 bytes, so 16-byte loads of one column by neighbouring rows hit distinct
-// banks.  Not done yet: mma.sync or wgmma, TMA rings, dQ fused into pass 2.
+//  3. dQ per (64-row query tile, head, batch), over the key tiles its rows
+//     see (the forward's loop).
+// bf16 (the training path): passes 2 and 3 are the wgmma kernels of
+// flash_attention_bwd_sm90.cu (TMA rings, accumulators in registers).
+// f32 (phase-2 checks only): passes 2 and 3 below, one block of 256 threads
+// each, the products on the CUDA cores in full f32 (TF32 would miss the f32
+// tolerance): 4x4 register tiles for the 64x64 score-shaped products, 4 rows
+// x hd/16 columns for the hd-wide ones.  Rows are padded by 16 bytes, so
+// 16-byte loads of one column by neighbouring rows hit distinct banks.
+
+#include <type_traits>
 
 #include "common.cuh"
 
-using repro_torch::from_f32;
+namespace repro_torch {
+// Passes 2 and 3 of the bf16 path (flash_attention_bwd_sm90.cu).
+cudaError_t attention_bwd_sm90(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* D, void* dq, void* dk, void* dv,
+                               int B, int Sq, int Sk, int H, int K, int hd,
+                               const long long* strides, float scale, int causal,
+                               cudaStream_t stream);
+}  // namespace repro_torch
 
 namespace {
 
@@ -59,28 +68,18 @@ struct Bwd {
   static constexpr int ND = HD / 16;             // columns per thread, hd-wide products
 };
 
-// 64 rows of HD elements of T into f32 shared memory (row stride kLd); rows
-// at or past `valid` are zeros.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long rs, int valid) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = HD / V;
+// 64 rows of HD f32 elements into shared memory (row stride kLd); rows at or
+// past `valid` are zeros.
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long rs,
+                                          int valid) {
+  constexpr int PER_ROW = HD / 4;
   for (int i = threadIdx.x; i < BT * PER_ROW; i += NT) {
     const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * V;
+    const int c = (i % PER_ROW) * 4;
     int4 raw = make_int4(0, 0, 0, 0);
     if (r < valid) raw = *reinterpret_cast<const int4*>(src + r * rs + c);
-    float* d = dst + r * Bwd<HD>::kLd + c;
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<int4*>(d) = raw;
-    } else {
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(p2[j]);
-        *reinterpret_cast<float2*>(d + 2 * j) = f;
-      }
-    }
+    *reinterpret_cast<int4*>(dst + r * Bwd<HD>::kLd + c) = raw;
   }
 }
 
@@ -181,16 +180,17 @@ __device__ __forceinline__ void acc_x_y(const float* X, const float* Y,
 }
 
 // 64 rows of an hd-wide f32 accumulator, times `mul`, to out (rows < valid).
-template <typename T, int HD>
-__device__ __forceinline__ void store_rows(T* out, long long rs, const float (&acc)[4][Bwd<HD>::ND],
-                                           int tr, int tc, int valid, float mul) {
+template <int HD>
+__device__ __forceinline__ void store_rows(float* out, long long rs,
+                                           const float (&acc)[4][Bwd<HD>::ND], int tr, int tc,
+                                           int valid, float mul) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = tr + 16 * r;
     if (row >= valid) continue;
 #pragma unroll
     for (int c = 0; c < Bwd<HD>::ND; ++c)
-      out[row * rs + tc + 16 * c] = from_f32<T>(acc[r][c] * mul);
+      out[row * rs + tc + 16 * c] = acc[r][c] * mul;
   }
 }
 
@@ -230,11 +230,12 @@ struct DkdvSmem {
 
 // Pass 2: dK and dV of one 64-key tile of one KV head, summed over the
 // group's query heads and every query tile that sees the keys.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT, 1)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int Sq,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ D,
+                float* __restrict__ dk, float* __restrict__ dv, int Sq,
                 int Sk, int H, int group, Str sq, Str sk, Str sv, Str sd, Str sdk, Str sdv,
                 float scale, int causal) {
   using SM = DkdvSmem<HD>;
@@ -256,8 +257,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
   const int kvalid = min(BT, Sk - k0);
 
-  load_tile<T, HD>(Ks, k + b * sk.b + k0 * sk.s + kh * sk.h, sk.s, kvalid);
-  load_tile<T, HD>(Vs, v + b * sv.b + k0 * sv.s + kh * sv.h, sv.s, kvalid);
+  load_tile<HD>(Ks, k + b * sk.b + k0 * sk.s + kh * sk.h, sk.s, kvalid);
+  load_tile<HD>(Vs, v + b * sv.b + k0 * sv.s + kh * sv.h, sv.s, kvalid);
 
   float acc_dk[4][ND], acc_dv[4][ND];
 #pragma unroll
@@ -274,8 +275,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       const int q0 = qt * BT;
       const int qvalid = min(BT, Sq - q0);
       __syncthreads();  // the last pair's tiles are read
-      load_tile<T, HD>(Qs, q + b * sq.b + q0 * sq.s + h * sq.h, sq.s, qvalid);
-      load_tile<T, HD>(dOs, dout + b * sd.b + q0 * sd.s + h * sd.h, sd.s, qvalid);
+      load_tile<HD>(Qs, q + b * sq.b + q0 * sq.s + h * sq.h, sq.s, qvalid);
+      load_tile<HD>(dOs, dout + b * sd.b + q0 * sd.s + h * sd.h, sd.s, qvalid);
       if (threadIdx.x < BT) {
         const long long at = (static_cast<long long>(b) * H + h) * Sq + q0 + threadIdx.x;
         lse_s[threadIdx.x] = threadIdx.x < qvalid ? lse[at] : 0.f;
@@ -290,9 +291,9 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       acc_xt_y<HD>(dSs, Qs, acc_dk, ti, tj);
     }
   }
-  store_rows<T, HD>(dk + b * sdk.b + k0 * sdk.s + kh * sdk.h, sdk.s, acc_dk, ti, tj, kvalid,
+  store_rows<HD>(dk + b * sdk.b + k0 * sdk.s + kh * sdk.h, sdk.s, acc_dk, ti, tj, kvalid,
                     scale);
-  store_rows<T, HD>(dv + b * sdv.b + k0 * sdv.s + kh * sdv.h, sdv.s, acc_dv, ti, tj, kvalid,
+  store_rows<HD>(dv + b * sdv.b + k0 * sdv.s + kh * sdv.h, sdv.s, acc_dv, ti, tj, kvalid,
                     1.f);
 }
 
@@ -311,11 +312,12 @@ struct DqSmem {
 
 // Pass 3: dQ of one 64-row query tile of one head, over the key tiles its
 // rows see.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT, 1)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ D, T* __restrict__ dq, int Sq, int Sk, int H,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ D,
+              float* __restrict__ dq, int Sq, int Sk, int H,
               int group, Str sq, Str sk, Str sv, Str sd, Str sdq, float scale, int causal) {
   using SM = DqSmem<HD>;
   constexpr int ND = Bwd<HD>::ND;
@@ -338,8 +340,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
   const int qvalid = min(BT, Sq - q0);
 
-  load_tile<T, HD>(Qs, q + b * sq.b + q0 * sq.s + h * sq.h, sq.s, qvalid);
-  load_tile<T, HD>(dOs, dout + b * sd.b + q0 * sd.s + h * sd.h, sd.s, qvalid);
+  load_tile<HD>(Qs, q + b * sq.b + q0 * sq.s + h * sq.h, sq.s, qvalid);
+  load_tile<HD>(dOs, dout + b * sd.b + q0 * sd.s + h * sd.h, sd.s, qvalid);
   if (threadIdx.x < BT) {
     const long long at = (static_cast<long long>(b) * H + h) * Sq + q0 + threadIdx.x;
     lse_s[threadIdx.x] = threadIdx.x < qvalid ? lse[at] : 0.f;
@@ -356,8 +358,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int k0 = 0; k0 < n_keys; k0 += BT) {
     const int kvalid = min(BT, Sk - k0);
     __syncthreads();  // the last tile's K and dS are read
-    load_tile<T, HD>(Ks, k + b * sk.b + k0 * sk.s + kh * sk.h, sk.s, kvalid);
-    load_tile<T, HD>(Vs, v + b * sv.b + k0 * sv.s + kh * sv.h, sv.s, kvalid);
+    load_tile<HD>(Ks, k + b * sk.b + k0 * sk.s + kh * sk.h, sk.s, kvalid);
+    load_tile<HD>(Vs, v + b * sv.b + k0 * sv.s + kh * sv.h, sv.s, kvalid);
     __syncthreads();
     float s[4][4], dp[4][4];
     two_scores<HD>(Qs, Ks, dOs, Vs, s, dp, ti, tj);
@@ -365,45 +367,61 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     __syncthreads();
     acc_x_y<HD>(dSs, Ks, acc, ti, tj);
   }
-  store_rows<T, HD>(dq + b * sdq.b + q0 * sdq.s + h * sdq.h, sdq.s, acc, ti, tj, qvalid, scale);
+  store_rows<HD>(dq + b * sdq.b + q0 * sdq.s + h * sdq.h, sdq.s, acc, ti, tj, qvalid, scale);
 }
 
 Str str3(const long long* st) { return Str{st[0], st[1], st[2]}; }
 
-// st: q, k, v, o, dO, dq, dk, dv strides (b, s, heads), 24 in all.
+// Passes 2 and 3 of the f32 path.  st: q, k, v, o, dO, dq, dk, dv strides
+// (b, s, heads), 24 in all.
+template <int HD>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* D, void* dq, void* dk, void* dv, int B,
+                       int Sq, int Sk, int H, int K, const long long* st, float scale,
+                       int causal, cudaStream_t stream) {
+  const Str sq = str3(st), sk = str3(st + 3), sv = str3(st + 6), sd = str3(st + 12),
+            sdq = str3(st + 15), sdk = str3(st + 18), sdv = str3(st + 21);
+  auto dkdv = bwd_dkdv_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(DkdvSmem<HD>::bytes));
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3((Sk + BT - 1) / BT, K, B), NT, DkdvSmem<HD>::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, D,
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, H / K, sq, sk, sv, sd, sdk,
+      sdv, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dqk = bwd_dq_kernel<HD>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(DqSmem<HD>::bytes));
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((Sq + BT - 1) / BT, H, B), NT, DqSmem<HD>::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, D,
+      static_cast<float*>(dq), Sq, Sk, H, H / K, sq, sk, sv, sd, sdq, scale, causal);
+  return cudaGetLastError();
+}
+
+// D, then passes 2 and 3: the FMA kernels for f32, the wgmma kernels for bf16.
 template <typename T, int HD>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* D, void* dq, void* dk,
                        void* dv, int B, int Sq, int Sk, int H, int K, const long long* st,
                        float scale, int causal, cudaStream_t stream) {
-  const Str sq = str3(st), sk = str3(st + 3), sv = str3(st + 6), so = str3(st + 9),
-            sd = str3(st + 12), sdq = str3(st + 15), sdk = str3(st + 18), sdv = str3(st + 21);
   const long long rows = static_cast<long long>(B) * H * Sq;
   bwd_dot_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), D, B, Sq, H, HD, so, sd);
+      static_cast<const T*>(o), static_cast<const T*>(dout), D, B, Sq, H, HD, str3(st + 9),
+      str3(st + 12));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  auto dkdv = bwd_dkdv_kernel<T, HD>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(DkdvSmem<HD>::bytes));
-  if (err != cudaSuccess) return err;
-  dkdv<<<dim3((Sk + BT - 1) / BT, K, B), NT, DkdvSmem<HD>::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, D, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H,
-      H / K, sq, sk, sv, sd, sdk, sdv, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  auto dqk = bwd_dq_kernel<T, HD>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(DqSmem<HD>::bytes));
-  if (err != cudaSuccess) return err;
-  dqk<<<dim3((Sq + BT - 1) / BT, H, B), NT, DqSmem<HD>::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, D, static_cast<T*>(dq), Sq, Sk, H, H / K, sq, sk, sv,
-      sd, sdq, scale, causal);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value)
+    return launch_fma<HD>(q, k, v, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, K, st, scale,
+                          causal, stream);
+  else
+    return repro_torch::attention_bwd_sm90(q, k, v, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, K,
+                                           HD, st, scale, causal, stream);
 }
 
 }  // namespace

@@ -88,7 +88,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """Gradients (dq, dk, dv) of the forward kernel's output ``o`` against
     ``do``, from the inputs and the forward's ``lse`` (``csrc/
     flash_attention_bwd.cu``: three launches, D = rowsum(dO * O), then dK/dV
-    per key tile and dQ per query tile), in the inputs' dtype."""
+    per key tile and dQ per query tile; in bf16 the last two are the wgmma
+    kernels of ``csrc/flash_attention_bwd_sm90.cu``), in the inputs' dtype."""
     _check_shapes(q, k, v, causal)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]

@@ -1,0 +1,54 @@
+"""PyTorch port: the planted faults of ``scripts/attention_bwd_faults.py``
+still match the kernel source they patch.
+
+The script runs on a GPU only; here its ``SOURCE`` and ``FAULTS`` are read
+as text (``ast``), so nothing of it is imported.  Each patch's target must
+occur exactly once in that source, or the script would plant nothing (or
+something else) in the kernel under test.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SCRIPT = ROOT / "scripts" / "attention_bwd_faults.py"
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+
+def _constants():
+    """{name: value} of the script's top-level literal assignments."""
+    out = {}
+    for node in ast.parse(SCRIPT.read_text()).body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            target = node.targets[0]
+            if isinstance(target, ast.Name):
+                try:
+                    out[target.id] = ast.literal_eval(node.value)
+                except ValueError:
+                    pass
+    return out
+
+
+CONSTANTS = _constants()
+FAULTS = CONSTANTS["FAULTS"]
+
+
+def test_faults_patch_the_bf16_backward_source():
+    source = CONSTANTS["SOURCE"]
+    assert source == "flash_attention_bwd_sm90.cu"
+    assert (CSRC / source).is_file()
+    build = (ROOT / "src" / "repro_torch" / "kernels" / "_build.py").read_text()
+    assert f'"{source}"' in build and f'"{CONSTANTS["ENTRY"]}"' in build
+    assert len(FAULTS) == 5 and len({name for name, _ in FAULTS}) == 5
+
+
+@pytest.mark.parametrize("name,patches", FAULTS, ids=[name for name, _ in FAULTS])
+def test_each_fault_target_occurs_once_in_the_source(name, patches):
+    text = (CSRC / CONSTANTS["SOURCE"]).read_text()
+    assert patches
+    for old, new in patches:
+        assert text.count(old) == 1, f"{name}: {old!r} occurs {text.count(old)} times"
+        assert new != old
+        text = text.replace(old, new)

@@ -103,6 +103,18 @@ BWD_CASES = [  # (B, Sq, Sk, H, K, hd, causal), as chip_smoke.py's phase 2
     (1, 65, 33, 16, 8, 128, False),
     *((1, Sq, Sq + extra, 16, 8, 64, True) for Sq in (1, 63, 64, 65, 129)
       for extra in (0, 100)),
+    # the wgmma kernels' tile edges at hd 128 and 80: Sq = Sk around one and
+    # two 64-row tiles, causal and not; Sq != Sk across a tile edge
+    *((1, S, S, 4, 2, hd, causal) for S in (63, 64, 65, 127, 128, 129) for hd in (128, 80)
+      for causal in (True, False)),
+    *((1, Sq, Sk, 4, 2, hd, causal) for Sq, Sk in ((63, 129), (65, 128), (127, 129), (64, 65))
+      for hd in (128, 80) for causal in (True, False)),
+    *((1, Sq, Sk, 4, 2, hd, False) for Sq, Sk in ((129, 63), (128, 65)) for hd in (128, 80)),
+    # Sq % 4 != 0 with Sk > Sq: LSE and D rows that start off a 16-byte line
+    (2, 65, 129, 8, 4, 128, True),
+    (1, 17, 131, 8, 2, 80, True),
+    (1, 127, 300, 16, 8, 128, True),
+    (4, 200, 200, 32, 4, 128, True),      # group 8 at B = 4
 ]
 
 
@@ -165,6 +177,27 @@ def test_flash_attention_bwd_kernel_reads_strided_views(cuda_device, dtype, hd):
     want = ref.attention_bwd_ref(q, k, v, o, lse, do)
     for g, w in zip(got, want):
         _assert_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,causal", [(1, 129, 129, True), (2, 65, 130, True),
+                                            (1, 100, 63, False)])
+def test_flash_attention_bwd_kernel_reads_strided_views_at_tile_edges(cuda_device, dtype, B,
+                                                                      Sq, Sk, causal):
+    """q and dO views with padded heads at hd 80 (the tensor maps' strides),
+    ragged query and key tiles."""
+    H, K, hd = 8, 4, 80
+    qp, kk, vv, dop = _randn(6, (B, Sq, H, hd + 8), (2, B, Sk, K, hd), (2, B, Sk, K, hd),
+                             (B, Sq, H, hd + 8), dtype=dtype, device=cuda_device)
+    q, k, v, do = qp[..., :hd], kk[1], vv[1], dop[..., :hd]
+    assert not q.is_contiguous() and not do.is_contiguous()
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        _assert_close(g, w, dtype)
+        _assert_grad_rows_close(g, w, dtype)
 
 
 @pytest.mark.cuda
