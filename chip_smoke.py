@@ -48,12 +48,23 @@
    latest checkpoint restored bit-equal, and two further steps from it and
    from the live state giving the same losses bit for bit.  Prints ms per
    step, tokens/s, the model-FLOPs share of 989 TFLOP/s, peak memory and the
-   device's idle share over profiled steps.
+   device's idle share over profiled steps;
+9. runs the port's executors as a LIDC cluster calls them
+   (``repro_torch.runtime``): the train executor on phase 8's run (10 steps,
+   a checkpoint every 5, so two phases), once whole on one lake, then on a
+   fresh lake phase 0 on a cluster that dies and the whole plan again from
+   another, which must resume from step 5 and end on a loss bit-equal to
+   the whole run's, under checkpoint names ``train-<job signature>``; the
+   serve executor on 8 requests of 32 tokens (8 slots, ``max_seq`` 2048);
+   the blast executor on the host.  Gates: the attention launches per
+   trained step, per prefill and per decode step.  Prints each job's wall
+   time, the cost model's virtual step times and memory estimate beside the
+   measured ones, and the attention kernels' device us per step.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
 profiled decode steps give each kernel's device time per served step.
-Phase 8 does the same around the training run and its profiled steps.  The last
+Phases 8 and 9 do the same around their runs and profiled steps.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero and
 prints no result.
@@ -114,6 +125,10 @@ GRAD_ROW_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 TRAIN_RUN = ("qwen3-1.7b", 4, 1024, 10, 5, 3e-3)
 GATE_BATCH = 1            # the gradient gate's batch (x the run's sequence)
 TRAIN_PROFILE_STEPS = 2
+
+# phase 9: the serve job's requests, new tokens each, slots and max_seq; its
+# train job is phase 8's run (TRAIN_RUN) through the train executor
+EXEC_SERVE = (8, 32, 8, 2048)
 
 # phases 5 and 6: (arch, batch, prompt length, max_seq, greedy decode steps)
 HYBRID_RUN = ("zamba2-2.7b", 4, 700, 1024, 32)
@@ -1136,6 +1151,223 @@ def train(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the executors on the card, as a LIDC cluster calls them
+# ---------------------------------------------------------------------------
+
+def device_us(torch, fn):
+    """``fn()`` under ``torch.profiler``; the device us of each wrapper's
+    kernels (KERNEL_SYMBOLS) over the whole call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    by_name = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return {w: sum(us for name, us in by_name.items() if any(sym in name for sym in syms))
+            for w, syms in KERNEL_SYMBOLS.items()}
+
+
+def executors(torch, np, dev):
+    """Phase 9.  The port's train, serve and blast executors run as a LIDC
+    cluster runs them (``ServiceEndpoint.executor(job, cluster)``), the real
+    work on the card.  Train: the plan whole on one lake, then on a fresh
+    lake its phase 0 on a cluster that dies and the whole plan again from
+    another cluster, which must resume from the step-5 checkpoint and end
+    on a bit-equal loss.  Serve: 8 requests of 32 tokens on 8 slots.  The
+    cost model's virtual step times and memory estimate are printed beside
+    the measured ones.  Returns each attention kernel's launches and device
+    us per step."""
+    import gc
+    from types import SimpleNamespace
+
+    import repro_torch.train.trainer as trainer
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.lake import MemoryLake
+    from repro_torch.models import memory_estimate, param_count
+    from repro_torch.runtime import executors as ex
+    from repro_torch.runtime.fleet import standard_endpoints
+    from repro_torch.runtime.protocol import Job, JobSpec
+    from repro_torch.serve.engine import ServeEngine
+
+    gc.collect()                  # phase 8's lake, ~41 GB of host memory
+    arch, B, S, steps, every, _ = TRAIN_RUN
+    requests, new_tokens, slots, max_seq = EXEC_SERVE
+    cfg = get_config(arch)
+    limit = 2 * param_count(cfg)  # above 1.72 B: the card computes the jobs
+    endpoints = standard_endpoints([arch], ckpt_every=every, device=dev,
+                                   real_param_limit=limit)
+    check([(e.app, e.archs) for e in endpoints] == [("train", (arch,)), ("serve", (arch,)),
+                                                    ("blast", ())],
+          f"endpoints {[(e.app, e.archs) for e in endpoints]}")
+    # the endpoints' executors, at phase 8's batch and sequence and at the
+    # serving run's slots and max_seq (the endpoints keep the reference's
+    # defaults, 4 x 32 and 4 x 64)
+    train_exec = ex.make_train_executor(ckpt_every=every, batch=B, seq=S, device=dev,
+                                        real_param_limit=limit)
+    serve_exec = ex.make_serve_executor(max_batch=slots, max_seq=max_seq, device=dev,
+                                        real_param_limit=limit)
+    job = Job(JobSpec("train", {"arch": arch, "shape": "custom", "steps": steps}))
+    run_name = f"train-{job.spec.signature()}"
+
+    starts = []                   # host clock at the start of every train step
+    make_train_step = trainer.make_train_step
+
+    def timed_train_step(*args, **kwargs):
+        fn = make_train_step(*args, **kwargs)
+
+        def step(*a, **kw):
+            starts.append(time.perf_counter())
+            return fn(*a, **kw)
+        return step
+
+    def run(plan, phases, profiled=None):
+        walls, us = [], None
+        for i in phases:
+            t0 = time.perf_counter()
+            if i == profiled:
+                us = device_us(torch, plan.phases[i][1])
+            else:
+                plan.phases[i][1]()
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return walls, us
+
+    with mock.patch.object(trainer, "make_train_step", timed_train_step):
+        # the plan whole, on one lake
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        lake = MemoryLake()
+        plan = train_exec(job, SimpleNamespace(lake=lake))
+        check(len(plan.phases) == steps // every, f"{len(plan.phases)} phases")
+        walls, _ = run(plan, range(len(plan.phases)))
+        whole = plan.finalize().payload
+        launches_whole, trained = launches_now(), len(starts)
+        peak_train = torch.cuda.max_memory_allocated()
+        step_times = [1e3 * (b - a) for i in range(0, steps, every)   # within a phase
+                      for a, b in zip(starts[i:i + every], starts[i + 1:i + every])]
+        names = sorted(lake.objects)
+        del plan, lake
+        gc.collect()
+        print(f"  train, the plan whole: phases {[round(w, 1) for w in walls]} s; payload "
+              f"{whole}")
+        print(f"  checkpoints: {names}")
+        check(whole["real_compute"] and whole["run_name"] == run_name, "not a real run")
+        check(trained == steps and names and all(
+            n.startswith(f"/lidc/data/ckpt/{run_name}/") for n in names),
+            f"{trained} steps; checkpoint names {names}")
+
+        # a cluster dies after phase 0; another runs the same job on the lake
+        reset_launches()
+        starts.clear()
+        lake = MemoryLake()
+        dead = train_exec(job, SimpleNamespace(lake=lake))
+        walls_dead, _ = run(dead, [0])
+        del dead
+        again = train_exec(job, SimpleNamespace(lake=lake))
+        walls_again, train_us = run(again, range(len(again.phases)),
+                                    profiled=len(again.phases) - 1)
+        resumed = again.finalize().payload
+        launches_resumed, trained_resumed = launches_now(), len(starts)
+        del again, lake
+        gc.collect()
+    print(f"  train, killed after phase 0 ({walls_dead[0]:.1f} s) and run again from "
+          f"another cluster: phases {[round(w, 1) for w in walls_again]} s (the last "
+          f"profiled); payload {resumed}")
+    check(resumed["real_compute"] and resumed["resumed_from"] == every,
+          f"resumed from {resumed.get('resumed_from')}, expected {every}")
+    check(resumed["final_loss"] == whole["final_loss"],
+          f"final loss {resumed['final_loss']!r} resumed, {whole['final_loss']!r} whole")
+    for launched, n in ((launches_whole, trained), (launches_resumed, trained_resumed)):
+        check(n == steps, f"{n} steps trained, expected {steps}")
+        for name in kernels():
+            want = n * cfg.n_layers if name.startswith("flash_attention") else 0
+            check(launched[name] == want, f"{name}: {launched[name]} launches over {n} "
+                                          f"trained steps, expected {want}")
+    train_us = {k: v / (steps - (steps // every - 1) * every)    # the last phase's steps
+                for k, v in train_us.items()}
+
+    # serve: the engine the executor builds is kept to read its counters
+    engines = []
+
+    class KeptEngine(ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    sjob = Job(JobSpec("serve", {"arch": arch, "requests": requests,
+                                 "new_tokens": new_tokens}))
+    with mock.patch.object(ex, "ServeEngine", KeptEngine):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        served = serve_exec(sjob, None)
+        torch.cuda.synchronize()
+        serve_wall = time.perf_counter() - t0
+        launches_serve = launches_now()
+        peak_serve = torch.cuda.max_memory_allocated()
+        eng = engines.pop()
+        serve_us = device_us(torch, lambda: serve_exec(sjob, None))
+        profiled_eng = engines.pop()
+    print(f"  serve: {serve_wall:.2f} s (weights drawn on the card included); payload "
+          f"{served.payload}; virtual duration {served.duration:.6f} s; launches "
+          f"{launches_serve}")
+    check(served.payload["real_compute"] and served.payload["tokens_out"] == requests
+          * new_tokens, f"tokens_out {served.payload['tokens_out']}")
+    check(launches_serve["flash_attention"] == requests * cfg.n_layers,
+          f"flash_attention launches {launches_serve['flash_attention']} != {requests} "
+          f"prefills x {cfg.n_layers} layers")
+    check(launches_serve["flash_decode"] == eng.decode_steps * cfg.n_layers,
+          f"flash_decode launches {launches_serve['flash_decode']} != {eng.decode_steps} "
+          f"steps x {cfg.n_layers} layers")
+    check(all(launches_serve[k] == 0 for k in ("flash_attention_bwd", "moe_gating",
+                                                "moe_router", "ssd_state_scan")),
+          "a kernel off the dense serving path launched")
+    blast = endpoints[2].executor(Job(JobSpec("blast", {"srr": "SRR2931415", "db": "human"})),
+                                  None)
+    print(f"  blast (host, numpy): payload {blast.payload}")
+
+    # the cost model beside the card
+    decode_shape = ShapeConfig("serve", "decode", max_seq, slots)
+    step_ms = statistics.median(step_times)
+    print(f"  cost model vs card: training step {1e3 * whole['step_time_s']:.2f} ms virtual, "
+          f"{step_ms:.2f} ms measured (median of {len(step_times)} host-clock steps; a "
+          f"model-FLOPs share of {ex.ASSUMED_MFU * 1e3 * whole['step_time_s'] / step_ms:.4f} "
+          f"against the assumed {ex.ASSUMED_MFU}); "
+          f"decode step {1e3 * ex.roofline_step_time(cfg, decode_shape, 1):.3f} ms virtual, "
+          f"{1e3 * eng.decode_s / eng.decode_steps:.2f} ms measured ({eng.decode_steps} "
+          f"steps); serve job {served.duration:.4f} s virtual, {serve_wall:.2f} s wall")
+    mem_train = ex.memory_model(job.spec, 1)
+    print(f"  memory: train job memory_model {mem_train} (shape 'custom' is not in SHAPES); "
+          f"memory_estimate at {B} x {S} "
+          f"{memory_estimate(cfg, ShapeConfig('custom', 'train', S, B), 1) / 2**30:.2f} GiB, "
+          f"measured peak {peak_train / 2**30:.2f} GiB; serve job memory_model "
+          f"{ex.memory_model(sjob.spec, 1) / 2**30:.2f} GiB (no shape: the reference's "
+          f"train 256 x 4096), measured peak {peak_serve / 2**30:.2f} GiB")
+    per_prefill = serve_us["flash_attention"] / requests
+    per_decode = serve_us["flash_decode"] / profiled_eng.decode_steps
+    out = {
+        "flash_attention": {
+            "launches_train": launches_whole["flash_attention"]
+            + launches_resumed["flash_attention"],
+            "launches_serve": launches_serve["flash_attention"],
+            "us_per_training_step": round(train_us["flash_attention"], 2),
+            "us_per_prefill": round(per_prefill, 2)},
+        "flash_attention_bwd": {
+            "launches_train": launches_whole["flash_attention_bwd"]
+            + launches_resumed["flash_attention_bwd"],
+            "us_per_training_step": round(train_us["flash_attention_bwd"], 2)},
+        "flash_decode": {"launches_serve": launches_serve["flash_decode"],
+                         "us_per_decode_step": round(per_decode, 2)},
+    }
+    print(f"  attention kernels in phase 9: {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the kernel table at serving shapes
 # ---------------------------------------------------------------------------
 
@@ -1421,6 +1653,12 @@ def main() -> int:
                     r["launches"] = trained["launches"]["flash_attention_bwd"]
                     r["served_us_per_step"] = trained["served"]["flash_attention_bwd"]
                     print_row(r)
+
+        with Phase("phase 9: the executors on the card"):
+            execd = executors(torch, np, dev)
+            for r in rows:
+                if r["shape"].startswith(f"{TRAIN_RUN[0]} ") and r["name"] in execd:
+                    r["phase9"] = execd[r["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -7,8 +7,11 @@ an in-memory lake.
 
 Weights are random, drawn from a seeded ``torch.Generator``.  Runs on CUDA
 unless ``--device cpu`` is given; with no GPU and no ``--device`` it fails.
-The reference's second mode, ``--via-lidc`` (the job placed by the LIDC
-overlay), needs the port's executors, which are not ported yet.
+The reference's second mode, ``--via-lidc``, submits the job to an overlay
+that this launcher builds.  The overlay is the reference's pure-Python
+control plane, which the port does not copy: the mode exits 2 here.  An H100
+cluster joins a reference overlay through ``repro_torch.runtime.fleet``
+(``standard_endpoints``), whose train executor runs this trainer.
 """
 
 from __future__ import annotations
@@ -33,12 +36,14 @@ def main() -> int:
     ap.add_argument("--run-name", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--via-lidc", action="store_true",
-                    help="submit through the LIDC overlay (not ported yet)")
+                    help="submit through the LIDC overlay (the reference's; exits 2)")
     args = ap.parse_args()
 
     if args.via_lidc:
-        print("--via-lidc: the LIDC executors do not run the PyTorch port yet "
-              "(ROADMAP Queue 1 item 5); use the direct mode", file=sys.stderr)
+        print("--via-lidc: the LIDC overlay is the reference's control plane "
+              "(repro.core), which the PyTorch port does not copy; an H100 cluster "
+              "joins a reference overlay through repro_torch.runtime.fleet."
+              "standard_endpoints. Use the direct mode here", file=sys.stderr)
         return 2
 
     from .. import resolve_device

@@ -2,10 +2,11 @@
 init_cache}, the input specs of a cell, and its analytic FLOPs.
 
 The port's counterpart of ``repro/models/model.py`` for the families it has
-ported so far: the dense decoder, the MoE decoder and the Mamba2 hybrid.
-The MoE and hybrid families serve but do not train yet (their kernels have
-no backward); other families (``vlm`` included, which the JAX package runs
-on the dense decoder) raise until their slice lands.
+ported so far: the dense decoder, which also runs the ``vlm`` family (the
+early-fusion backbone, as the JAX package runs it), the MoE decoder and the
+Mamba2 hybrid.  The dense and vlm families train; the MoE and hybrid
+families serve but do not train yet (their kernels have no backward).  The
+ssm and encdec families raise until their slices land.
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig, ShapeConfig
 
-__all__ = ["ModelBundle", "PORTED_FAMILIES", "bundle_for", "model_module", "param_count",
-           "memory_estimate", "input_specs", "synth_batch", "model_flops"]
+__all__ = ["ModelBundle", "PORTED_FAMILIES", "TRAINED_FAMILIES", "bundle_for",
+           "model_module", "param_count", "memory_estimate", "input_specs", "synth_batch",
+           "model_flops"]
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
+TRAINED_FAMILIES = ("dense", "vlm")
 
 
 @dataclass(frozen=True)
@@ -41,7 +44,7 @@ class ModelBundle:
 def model_module(cfg: ArchConfig) -> ModuleType:
     """The module that runs ``cfg``'s family; its ``Model`` builds the
     parameter container."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         from . import transformer as m
     elif cfg.family == "moe":
         from . import moe as m
@@ -61,9 +64,12 @@ def _loss_not_ported(cfg: ArchConfig, *args, **kwargs):
 
 
 def bundle_for(cfg: ArchConfig) -> ModelBundle:
+    """The family's functions; a vlm config gets the dense bundle (named
+    "dense", as the reference names it)."""
     m = model_module(cfg)
-    loss_fn = m.loss_fn if cfg.family == "dense" else _loss_not_ported
-    return ModelBundle(cfg.family, m.init, loss_fn, m.apply, m.prefill, m.decode_step,
+    loss_fn = m.loss_fn if cfg.family in TRAINED_FAMILIES else _loss_not_ported
+    family = "dense" if cfg.family == "vlm" else cfg.family
+    return ModelBundle(family, m.init, loss_fn, m.apply, m.prefill, m.decode_step,
                        m.init_cache)
 
 

@@ -29,9 +29,9 @@ from ..models.model import bundle_for
 __all__ = ["Request", "ServeEngine", "UnsupportedFamilyError",
            "SUPPORTED_FAMILIES"]
 
-# model families the continuous-batching engine can decode (the JAX engine
-# also takes "vlm", which the port has not ported yet)
-SUPPORTED_FAMILIES = ("dense",)
+# model families the continuous-batching engine can decode (the vlm family
+# runs on the dense decoder), as the JAX engine's
+SUPPORTED_FAMILIES = ("dense", "vlm")
 
 
 class UnsupportedFamilyError(ValueError):

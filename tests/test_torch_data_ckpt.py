@@ -288,4 +288,4 @@ def test_train_cli_direct_mode_and_via_lidc():
     assert "step     2 loss" in out.stdout and "done: 3 steps on cpu" in out.stdout
     out = subprocess.run(base + ["--via-lidc"], capture_output=True, text=True, timeout=300,
                          env=env)
-    assert out.returncode == 2 and "executors" in out.stderr
+    assert out.returncode == 2 and "repro_torch.runtime.fleet" in out.stderr

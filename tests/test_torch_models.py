@@ -2,8 +2,9 @@
 flattened as the checkpoint flattens them, through ``interop``) and the same
 tokens through the JAX model and the port, on the CPU.
 
-Configs: lidc-demo-smoke, qwen2-smoke (QKV bias, head dim 8, group 7) and
-qwen3-smoke (qk_norm) in f32 at 2e-5; one bf16 case at 3e-2.
+Configs: lidc-demo-smoke, qwen2-smoke (QKV bias, head dim 8, group 7),
+qwen3-smoke (qk_norm) and chameleon-smoke (the vlm family on the dense
+decoder, qk_norm, rope theta 1e4) in f32 at 2e-5; one bf16 case at 3e-2.
 """
 
 import dataclasses
@@ -29,7 +30,7 @@ from repro_torch.models import bundle_for, memory_estimate, param_count
 from repro_torch.models import transformer as T
 
 CPU = torch.device("cpu")
-ARCHS = ["lidc-demo", "qwen2-0.5b", "qwen3-1.7b"]
+ARCHS = ["lidc-demo", "qwen2-0.5b", "qwen3-1.7b", "chameleon-34b"]
 
 
 def _pair(arch, dtype="float32"):
@@ -222,12 +223,14 @@ def test_init_is_seeded_and_shaped():
 
 
 def test_bundle_for_is_dense_only():
-    """The ported families resolve (dense, moe, hybrid); the others (ssm,
-    encdec, vlm) still raise."""
-    for arch, family in (("lidc-demo", "dense"), ("qwen3-moe-30b-a3b", "moe"),
-                         ("zamba2-2.7b", "hybrid")):
+    """The ported families resolve (dense, vlm on the dense bundle, as the
+    reference's ``bundle_for`` names it, moe, hybrid); the others (ssm,
+    encdec) still raise."""
+    for arch, family in (("lidc-demo", "dense"), ("chameleon-34b", "dense"),
+                         ("qwen3-moe-30b-a3b", "moe"), ("zamba2-2.7b", "hybrid")):
         assert bundle_for(smoke_of(arch)).family == family
-    for arch in ("xlstm-350m", "seamless-m4t-large-v2", "chameleon-34b"):
+        assert jax_bundle(jax_smoke(arch)).family == family
+    for arch in ("xlstm-350m", "seamless-m4t-large-v2"):
         with pytest.raises(ValueError, match="not ported"):
             bundle_for(smoke_of(arch))
 
@@ -250,7 +253,9 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.train.step, repro_torch.kernels.moe_gating, "
             "repro_torch.kernels.ssd_scan, repro_torch.train.trainer, "
             "repro_torch.launch.train, repro_torch.ckpt.checkpoint, "
-            "repro_torch.data.pipeline, repro_torch.optim, repro_torch.lake; "
+            "repro_torch.data.pipeline, repro_torch.optim, repro_torch.lake, "
+            "repro_torch.runtime, repro_torch.runtime.protocol, "
+            "repro_torch.runtime.executors, repro_torch.runtime.fleet; "
             "bad = sorted(m for m, mod in sys.modules.items() if mod is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))); print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))

@@ -228,6 +228,25 @@ def test_port_and_jax_engines_emit_identical_streams(smoke_f32):
     assert streams[0] == streams[1]
 
 
+def test_engines_emit_identical_streams_on_chameleon_smoke():
+    """The vlm family (chameleon's backbone on the dense decoder, qk-norm
+    on) in f32: both engines emit the same greedy streams."""
+    jcfg = dataclasses.replace(jax_smoke("chameleon-34b"), dtype="float32")
+    cfg = dataclasses.replace(smoke_of("chameleon-34b"), dtype="float32")
+    assert cfg.family == "vlm" and cfg.qk_norm and cfg.family in SUPPORTED_FAMILIES
+    jparams = jax_bundle(jcfg).init(jcfg, KEY)
+    params = params_from_jax(_flatten(jparams), cfg, device=CPU)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (4, 11, 6)]
+    streams = []
+    for eng in (JaxServeEngine(jcfg, jparams, max_batch=2, max_seq=32),
+                _engine(cfg, params, max_batch=2, max_seq=32)):
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        done = eng.run()
+        streams.append(([r.rid for r in done], [r.out for r in reqs], eng.decode_steps))
+    assert streams[0] == streams[1]
+
+
 def test_jax_kv_checkpoint_restores_into_port(smoke_f32):
     """Checkpoint mid-decode in the JAX engine, restore in the port's engine:
     the stream continues exactly as uninterrupted JAX decode."""
