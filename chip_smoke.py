@@ -17,7 +17,11 @@
    2, 7 and 8, Sq = Sk and Sq < Sk, ragged tails around the 64-row tile
    (Sq and Sk at 63-65 and 127-129), Sq % 4 != 0 and strided views, in f32
    and bf16, against its plain closed form, and the forward's
-   log-sum-exp);
+   log-sum-exp; the router backward at decode and prefill row counts
+   (1-4096, E = 128, k = 8), with and without the probabilities' gradient
+   and with repeated probabilities, against its closed form, and the
+   registered router op's dx and drouter against autograd through the
+   plain router with the kernel's routing);
 3. serves qwen3-1.7b at full width and depth (random weights from a seeded
    ``torch.Generator``) through ``ServeEngine``: 12 requests, prompts of
    8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots; then one
@@ -37,14 +41,17 @@
    attention kernels at all three GQA groups: 2, 1 and 8) beside its
    bound, its plain version and one PyTorch library call where one exists,
    with L2 flushed by writing and by reading 256 MB, and prints the table
-   as JSON; and the attention backward at phase 8's layer shape beside its
-   bound, its plain version and autograd through PyTorch's SDPA;
+   as JSON; the attention backward at phase 8's layer shape beside its
+   bound, its plain version and autograd through PyTorch's SDPA; and the
+   router backward at phase 10's shape beside its bound, its plain version
+   and the two f32 products that follow it;
 8. trains qwen3-1.7b at full width and depth (1.72 B params, bf16, f32
    AdamW moments) through ``run_training``: 10 steps of 4 x 1024 synthetic
    tokens, checkpoints every 5 steps into an in-memory lake.  Gates: the
    kernel path's gradients against the plain bf16 and f32 paths on one
-   batch; 28 forward and 28 backward attention launches per step (56
-   forward under remat "full" and "dots"); finite losses that fall; the
+   batch, and bit-equal when run twice; 28 forward and 28 backward
+   attention launches per step (56 forward under remat "full" and
+   "dots"); finite losses that fall; the
    latest checkpoint restored bit-equal, and two further steps from it and
    from the live state giving the same losses bit for bit.  Prints ms per
    step, tokens/s, the model-FLOPs share of 989 TFLOP/s, peak memory and the
@@ -59,12 +66,29 @@
    the blast executor on the host.  Gates: the attention launches per
    trained step, per prefill and per decode step.  Prints each job's wall
    time, the cost model's virtual step times and memory estimate beside the
-   measured ones, and the attention kernels' device us per step.
+   measured ones, and the attention kernels' device us per step;
+10. trains qwen3-moe-30b-a3b at full width, depth cut to 4 layers (3.11 B
+   params, bf16, f32 AdamW moments, ~37 GB of state) through
+   ``run_training``: 10 steps of 4 x 1024 synthetic tokens, the checkpoint
+   of step 5 kept in an in-memory lake (one at a time: each is ~37 GB of
+   host arrays).  Gates: the kernel path's gradients and its tokens'
+   losses against the plain bf16 and f32 paths on one batch (the mean
+   loss's error, a sum of signed errors, is printed but not gated: between
+   the two bf16 paths it is a coin flip, ``scripts/moe_loss_spread.py``),
+   and bit-equal when run twice;
+   4 forward and 4 backward launches per step of ``moe_router`` and of
+   ``flash_attention`` (8 forward under remat "full" and "dots"); finite
+   losses that fall; the step-5 checkpoint restored bit-equal to the live
+   state it was taken from, and steps 6-10 from it giving the run's losses
+   and final state bit for bit.  Prints ms per step, tokens/s, the
+   model-FLOPs share of 989 TFLOP/s (active parameters), peak memory, the
+   idle share over profiled steps, and the device us per step of the
+   repo's kernels and of the router backward's two products.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
 profiled decode steps give each kernel's device time per served step.
-Phases 8 and 9 do the same around their runs and profiled steps.  The last
+Phases 8, 9 and 10 do the same around their runs and profiled steps.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero and
 prints no result.
@@ -134,6 +158,10 @@ EXEC_SERVE = (8, 32, 8, 2048)
 HYBRID_RUN = ("zamba2-2.7b", 4, 700, 1024, 32)
 MOE_RUN = ("qwen3-moe-30b-a3b", 4, 300, 512, 16)
 MOE_TEACHER_LAYERS = 4      # f32 at 48 layers would need ~122 GB
+
+# phase 10: (arch, layers kept, batch, sequence, steps, checkpoint at, peak
+# lr); 48 layers of bf16 weights and gradients and f32 moments: ~370 GB
+MOE_TRAIN_RUN = ("qwen3-moe-30b-a3b", 4, 4, 1024, 10, 5, 3e-3)
 
 
 class Phase:
@@ -216,11 +244,12 @@ def kernels():
     """name -> wrapper of every kernel; each wrapper counts its launches."""
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.moe_gating import moe_gating, moe_router
+    from repro_torch.kernels.moe_gating import moe_gating, moe_router, moe_router_bwd
     from repro_torch.kernels.ssd_scan import ssd_state_scan
     return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
             "flash_decode": flash_decode, "moe_gating": moe_gating,
-            "moe_router": moe_router, "ssd_state_scan": ssd_state_scan}
+            "moe_router": moe_router, "moe_router_bwd": moe_router_bwd,
+            "ssd_state_scan": ssd_state_scan}
 
 
 # wrapper -> a part of the name of every CUDA kernel it launches, as the
@@ -232,6 +261,7 @@ KERNEL_SYMBOLS = {
     "flash_decode": ("flash_decode_",),
     "moe_gating": ("moe_gating_kernel",),
     "moe_router": ("moe_router_kernel", "moe_router_decode_kernel"),
+    "moe_router_bwd": ("moe_router_bwd_kernel",),
     "ssd_state_scan": ("ssd_scan_kernel",),
 }
 
@@ -399,6 +429,11 @@ ROUTER_CASES = [  # (T, D, E, k, x dtype, router columns repeated 8 times)
     (1200, 2048, 128, 8, "bfloat16", True),
 ]
 
+# the router backward: token rows from decode (1-9) to phase 10's prefill
+# (4096), at qwen3-moe's D = 2048, E = 128, k = 8
+ROUTER_BWD_ROWS = [1, 4, 8, 9, 1200, 4096]
+ROUTER_OP_ROWS = [4, 1200, 4096]
+
 SCAN_CASES = [(1, 3, 64, 80, 64), (2, 5, 4, 16, 16)]   # (B, C, H, P, N)
 
 
@@ -449,6 +484,7 @@ def check_kernels(torch, dev):
     check_attention_bwd(torch, dev, gen)
     check_moe_gating(torch, dev, gen)
     check_moe_router(torch, dev, gen)
+    check_moe_router_bwd(torch, dev, gen)
     check_ssd_scan(torch, dev, gen)
 
 
@@ -571,6 +607,76 @@ def check_moe_router(torch, dev, gen):
     print(f"  moe_router: largest |d log p| {worst:.3e}; delta {ROUTER_TIE_DELTA} is "
           f"{ROUTER_TIE_DELTA / max(worst, 1e-30):.1f}x it")
     check(ROUTER_TIE_DELTA >= 10 * worst, "moe_router's logits moved by more than delta / 10")
+
+
+def pinned_router(torch, x, router, ids):
+    """The plain router's weights and probabilities with the routing taken
+    from ``ids``, differentiable in x and the router: the kernel sums the
+    logits in another order than cuBLAS, so near ties may route otherwise,
+    and a gradient is compared where the routing is the same."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    s = probs.gather(1, ids.long())
+    return s / s.sum(dim=1, keepdim=True), probs
+
+
+def grads_close(got, want, dtypes):
+    """(largest elementwise err, largest row-relative err or None, within
+    both tolerances) over gradient pairs, each at the tolerance of its
+    dtype name."""
+    errs, rels, ok = [], [], True
+    for g, w, dtype in zip(got, want, dtypes):
+        err, ok_e = max_err(g, w, TOL[dtype])
+        rel = grad_row_rel_err(g, w, TOL[dtype])
+        errs.append(err)
+        rels.append(rel)
+        ok = ok and ok_e and (rel is None or rel <= GRAD_ROW_TOL[dtype])
+    return errs, rels, ok
+
+
+def check_moe_router_bwd(torch, dev, gen):
+    """The router backward against ``ref.moe_router_bwd_ref`` on the
+    forward kernel's own outputs, gprobs present and absent, router columns
+    distinct and repeated (probabilities that tie exactly); then the
+    registered op's dx and drouter against autograd through the plain
+    router with the kernel's routing."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe_gating import moe_router_bwd, moe_router_fwd
+    D, E, k = 2048, 128, 8
+    for T in ROUTER_BWD_ROWS:
+        for dup in (False, True):
+            x, router = router_inputs(torch, gen, dev, T, D, E, "bfloat16", dup)
+            w, ids, probs = moe_router_fwd(x, router, k)
+            gw = torch.randn((T, k), generator=gen, device=dev)
+            gprobs = torch.randn((T, E), generator=gen, device=dev)
+            for gp in (gprobs, None):
+                got = moe_router_bwd(gw, gp, w, ids, probs)
+                want = ref.moe_router_bwd_ref(gw, gp, w, ids, probs)
+                torch.cuda.synchronize()
+                (err,), (rel,), ok = grads_close([got], [want], ["float32"])
+                print(f"  moe_router_bwd T={T} E={E} k={k}{' repeated columns' if dup else ''}"
+                      f" gprobs {'present' if gp is not None else 'absent'}: max_abs_err "
+                      f"{err:.3e} (tol {TOL['float32']}), row_rel_err "
+                      f"{'n/a' if rel is None else f'{rel:.3e}'} "
+                      f"(tol {GRAD_ROW_TOL['float32']})")
+                check(ok, f"moe_router_bwd disagrees with moe_router_bwd_ref at T={T}: {err}")
+    for T in ROUTER_OP_ROWS:
+        for dtype in ("float32", "bfloat16"):
+            x, router = router_inputs(torch, gen, dev, T, D, E, dtype, False)
+            gw = torch.randn((T, k), generator=gen, device=dev)
+            gprobs = torch.randn((T, E), generator=gen, device=dev) / T
+            leaves = [x.clone().requires_grad_(), router.clone().requires_grad_()]
+            w, ids, probs = ops.moe_router(*leaves, k)
+            got = torch.autograd.grad([w, probs], leaves, [gw, gprobs])
+            plain = [x.clone().requires_grad_(), router.clone().requires_grad_()]
+            want = torch.autograd.grad(pinned_router(torch, *plain, ids), plain, [gw, gprobs])
+            torch.cuda.synchronize()
+            errs, rels, ok = grads_close(got, want, [dtype, "float32"])
+            print(f"  repro_torch::moe_router gradient T={T} D={D} E={E} k={k} x {dtype}: "
+                  f"max_abs_err dx/drouter={errs[0]:.3e}/{errs[1]:.3e} (tol {TOL[dtype]}/"
+                  f"{TOL['float32']}), row_rel_err "
+                  f"{'/'.join('n/a' if r is None else f'{r:.3e}' for r in rels)}")
+            check(ok and got[0].dtype == x.dtype, f"the router op's gradients disagree with "
+                                                  f"the plain router's at T={T} {dtype}")
 
 
 def check_ssd_scan(torch, dev, gen):
@@ -990,30 +1096,77 @@ def loss_and_grads(torch, cfg, params, batch, remat="none"):
     return loss.item(), torch.autograd.grad(loss, list(params.parameters()))
 
 
-def gradient_gate(torch, np, dev, cfg):
-    """One batch through the kernel path, the plain path (``ops.attention``
-    patched to ``ref.attention_ref``, as phase 4 patches) and the plain path
-    in f32 (remat "full" to fit): for every parameter, the kernel path's
-    relative gradient error against f32 at most TEACHER_SLACK times the
-    plain bf16 path's; the loss the same way."""
+def token_losses(torch, cfg, params, batch):
+    """Each token's next-token loss (f32, (B * S,)), the MoE's aux term left
+    out: the final norm, the output projection in the parameters' dtype and
+    an f32 cross entropy, as ``chunked_lm_loss`` computes each chunk."""
+    import torch.nn.functional as F
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import model_module
+    with torch.no_grad():
+        h = model_module(cfg).hidden(cfg, params, batch["tokens"])
+        logits = T.logits_of(cfg, params, h[0] if isinstance(h, tuple) else h).float()
+        return F.cross_entropy(logits.flatten(0, 1), batch["labels"].flatten().long(),
+                               reduction="none")
+
+
+def gradient_gate(torch, np, dev, cfg, seq, plain, want, show, loss_by_token=False):
+    """One batch (GATE_BATCH x ``seq``) through the kernel path, the plain
+    path (the ``ops`` entries in ``plain`` patched to their plain versions,
+    as phase 4 patches) and the plain path in f32 (remat "full" to fit):
+    for every parameter, the kernel path's relative gradient error against
+    f32 at most TEACHER_SLACK times the plain bf16 path's; the loss the
+    same way: its error against f32, or with ``loss_by_token`` the relative
+    error of the vector of the tokens' losses, as of a gradient.  The
+    kernel path runs twice and must give the same loss and gradients bit
+    for bit.  ``want`` gives each kernel's launches on the kernel path;
+    ``show`` the parameters whose errors are printed.  Returns, per router
+    call, the ids of the kernel path, of the plain bf16 path and of the
+    plain router on the kernel path's own inputs."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops, ref
     from repro_torch.models import bundle_for
-    seq = TRAIN_RUN[2]
     params = bundle_for(cfg).init(cfg, 0, device=dev).requires_grad_(True)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in next(SyntheticLM(cfg, GATE_BATCH, seq, seed=7)).items()}
+    routed = {"kernel": [], "plain": [], "plain_router": []}
+
+    def recording(fn, path):
+        def route(x, router, k):
+            out = fn(x, router, k)
+            routed[path].append(out[1].detach().clone())
+            if path == "kernel":
+                routed["plain_router"].append(
+                    ref.moe_router_ref(x.detach(), router.detach(), k)[1])
+            return out
+        return route
+
     reset_launches()
-    loss_k, grads_k = loss_and_grads(torch, cfg, params, batch)
+    with mock.patch.object(ops, "moe_router", recording(ops.moe_router, "kernel")):
+        loss_k, grads_k = loss_and_grads(torch, cfg, params, batch)
     launched = launches_now()
-    check(launched["flash_attention"] == launched["flash_attention_bwd"] == cfg.n_layers,
-          f"kernel path launches {launched}")
-    with mock.patch.object(ops, "attention", ref.attention_ref):
+    check(all(launched[name] == want.get(name, 0) for name in launched),
+          f"kernel path launches {launched}, expected {want}")
+    loss_r, grads_r = loss_and_grads(torch, cfg, params, batch)
+    same = loss_r == loss_k and all(torch.equal(a, b) for a, b in zip(grads_r, grads_k))
+    del grads_r
+    print(f"  the kernel path run twice on the gate batch: loss and {len(grads_k)} "
+          f"gradients bit-equal {same}")
+    check(same, "the kernel path's loss or gradients differ between two runs")
+    launched = launches_now()
+    with contextlib.ExitStack() as stack:
+        for name, fn in plain.items():
+            stack.enter_context(mock.patch.object(
+                ops, name, recording(fn, "plain") if name == "moe_router" else fn))
         loss_p, grads_p = loss_and_grads(torch, cfg, params, batch)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         params32 = copy.deepcopy(params).float()
         loss_32, grads_32 = loss_and_grads(torch, cfg32, params32, batch, remat="full")
+        if loss_by_token:
+            tok_p = token_losses(torch, cfg, params, batch)
+            tok_32 = token_losses(torch, cfg32, params32, batch)
         del params32
+    routed["plain"] = routed["plain"][:len(routed["kernel"])]   # the bf16 pass's
     check(launches_now() == launched, "a kernel launched on the plain paths")
     worst, names = 0.0, [n for n, _ in params.named_parameters()]
     for name, gk, gp, g32 in zip(names, grads_k, grads_p, grads_32):
@@ -1027,14 +1180,20 @@ def gradient_gate(torch, np, dev, cfg):
           f"{loss_p:.6f}, plain f32 {loss_32:.6f}; |dloss| vs f32 kernel {lk:.3e}, plain "
           f"{lp:.3e}; over {len(names)} parameter tensors the largest ratio of relative "
           f"gradient errors (kernel / plain bf16) {worst:.3f} (limit {TEACHER_SLACK})")
-    for name in ("blocks.0.attn.wq", "blocks.0.attn.wk", "blocks.0.attn.wv",
-                 f"blocks.{cfg.n_layers - 1}.attn.wq", "embed.table"):
+    for name in show:
         i = names.index(name)
         ek, ep = (float((g[i].float() - grads_32[i]).norm() / grads_32[i].norm())
                   for g in (grads_k, grads_p))
         print(f"    {name}: relative gradient err kernel {ek:.4e}, plain bf16 {ep:.4e}")
+    if loss_by_token:
+        tok_k = token_losses(torch, cfg, params, batch)
+        norm = float(tok_32.norm())
+        lk, lp = (float((t - tok_32).norm()) / norm for t in (tok_k, tok_p))
+        print(f"  the tokens' losses: relative err vs f32 kernel {lk:.4e}, plain bf16 {lp:.4e} "
+              f"(limit {TEACHER_SLACK}x; the mean's error above is a sum of signed errors)")
     check(lk <= TEACHER_SLACK * lp, f"kernel path's loss err {lk} > {TEACHER_SLACK} x the "
                                     f"plain bf16 path's {lp}")
+    return routed
 
 
 def train(torch, np, dev):
@@ -1054,7 +1213,11 @@ def train(torch, np, dev):
     n = param_count(cfg)
     print(f"  {n / 1e9:.3f} B params, {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.dtype}; AdamW moments f32")
-    gradient_gate(torch, np, dev, cfg)
+    from repro_torch.kernels import ref
+    gradient_gate(torch, np, dev, cfg, S, {"attention": ref.attention_ref},
+                  {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers},
+                  ("blocks.0.attn.wq", "blocks.0.attn.wk", "blocks.0.attn.wv",
+                   f"blocks.{cfg.n_layers - 1}.attn.wq", "embed.table"))
     torch.cuda.empty_cache()
 
     lake, times = MemoryLake(), []
@@ -1323,7 +1486,8 @@ def executors(torch, np, dev):
           f"flash_decode launches {launches_serve['flash_decode']} != {eng.decode_steps} "
           f"steps x {cfg.n_layers} layers")
     check(all(launches_serve[k] == 0 for k in ("flash_attention_bwd", "moe_gating",
-                                                "moe_router", "ssd_state_scan")),
+                                                "moe_router", "moe_router_bwd",
+                                                "ssd_state_scan")),
           "a kernel off the dense serving path launched")
     blast = endpoints[2].executor(Job(JobSpec("blast", {"srr": "SRR2931415", "db": "human"})),
                                   None)
@@ -1368,6 +1532,204 @@ def executors(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: train qwen3-moe-30b-a3b (4 layers) through run_training
+# ---------------------------------------------------------------------------
+
+def fingerprint(torch, t) -> int:
+    """The sum, mod 2^64, over ``t``'s elements of each element's bits (as
+    an integer) times (its position mod 65521) + 1: a change of any one
+    element always changes it.  Computed on the device in chunks."""
+    flat = t.detach().reshape(-1)
+    bits = flat.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[flat.element_size()])
+    total, chunk = 0, 1 << 25
+    for i in range(0, bits.numel(), chunk):
+        part = bits[i:i + chunk].long()
+        weight = torch.arange(i, i + part.numel(), device=part.device) % 65521 + 1
+        total += int((part * weight).sum())
+    return total % (1 << 64)
+
+
+def state_fingerprints(torch, state):
+    """name -> fingerprint of every tensor of a train state: the
+    parameters, both AdamW moments and the step."""
+    fps = {f"params.{n}": fingerprint(torch, p) for n, p in state["params"].named_parameters()}
+    for which in ("m", "v"):
+        fps.update({f"opt.{which}.{n}": fingerprint(torch, t)
+                    for n, t in getattr(state["opt"], which).items()})
+    fps["opt.step"] = fingerprint(torch, state["opt"].step)
+    return fps
+
+
+def product_us(torch, step, shapes, n):
+    """Device us per call of ``step`` of the ``aten::mm`` calls whose two
+    input shapes are among ``shapes`` (torch.profiler, shapes recorded);
+    None where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    except RuntimeError as exc:       # a diagnostic: the profiler may be unavailable
+        print(f"  torch.profiler failed ({exc}); product time not measured")
+        return None
+    us = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key == "aten::mm" and [list(x) for x in e.input_shapes[:2]] in shapes:
+            us += getattr(e, "device_time_total", 0)
+    return us / n if us else None
+
+
+def train_moe(torch, np, dev):
+    """Phase 10.  Returns the run's kernel launches, the profiled steps'
+    device us per step of each kernel and of the router backward's two
+    products."""
+    import gc
+
+    import repro_torch.train.trainer as trainer
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ref
+    from repro_torch.lake import MemoryLake
+    from repro_torch.models import model_flops, param_count
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step, train_state_shape
+
+    gc.collect()                  # phases 8 and 9's lakes, tens of GB of host memory
+    arch, layers, B, S, steps, every, lr = MOE_TRAIN_RUN
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    n, active = param_count(cfg), param_count(cfg, active_only=True)
+    experts = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * layers
+    print(f"  {n / 1e9:.3f} B params at {layers} of {full.n_layers} layers ({experts / 1e9:.3f} "
+          f"B of them expert weights, {active / 1e9:.3f} B active), d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, {cfg.dtype}; AdamW moments f32: "
+          f"{(4 * n + 8 * n) / 1e9:.1f} GB of weights, gradients and moments")
+    per_step = {"flash_attention": layers, "flash_attention_bwd": layers,
+                "moe_router": layers, "moe_router_bwd": layers}
+    routed = gradient_gate(
+        torch, np, dev, cfg, S, {"attention": ref.attention_ref,
+                                 "moe_router": ref.moe_router_ref}, per_step,
+        ("blocks.0.moe.router", "blocks.0.moe.w_gate", "blocks.0.moe.w_down",
+         f"blocks.{layers - 1}.moe.router", "blocks.0.attn.wq", "embed.table"),
+        loss_by_token=True)
+    check(all(len(ids) == layers for ids in routed.values()), "router calls not recorded")
+    total = sum(a.numel() for a in routed["kernel"])
+    differ = {path: sum(int((a != b).sum()) for a, b in zip(routed["kernel"], routed[path]))
+              for path in ("plain", "plain_router")}
+    print(f"  routing on the gate batch, (token, rank) ids of {total} that differ from the "
+          f"kernel path's: the plain bf16 path {differ['plain']} (its attention rounds "
+          f"otherwise, so the router sees other inputs); the plain router on the kernel "
+          f"path's own inputs {differ['plain_router']}")
+    del routed
+    torch.cuda.empty_cache()
+
+    # the run: only step `every`'s checkpoint is written (each is ~37 GB of
+    # host arrays), and the live state it is taken from is fingerprinted
+    lake, times, at_save = MemoryLake(), [], {}
+    save_checkpoint = trainer.save_checkpoint
+
+    def save_first(lake_, run, step, state, meta=None):
+        if step != every:
+            return None
+        at_save.update(state_fingerprints(torch, state))
+        return save_checkpoint(lake_, run, step, state, meta)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer, "save_checkpoint", save_first):
+        res = trainer.run_training(cfg, steps=steps, batch=B, seq=S, lake=lake,
+                                   run_name="phase10", ckpt_every=every, seed=0, lr=lr,
+                                   device=dev, on_step=lambda s, l: times.append(
+                                       time.perf_counter()))
+    torch.cuda.synchronize()
+    launches = launches_now()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  run_training: {res.steps_done} steps of {B} x {S} tokens in "
+          f"{time.perf_counter() - t0:.1f} s (init and the step-{every} checkpoint included); "
+          f"launches {launches}")
+    print(f"  losses: {[round(x, 4) for x in res.losses]}")
+    check(res.steps_done == steps and all(np.isfinite(res.losses)), "non-finite loss")
+    check(res.losses[-1] < res.losses[0], "the loss did not fall")
+    for name in kernels():
+        want = steps * per_step.get(name, 0)
+        check(launches[name] == want, f"{name}: {launches[name]} launches over {steps} "
+                                      f"steps, expected {want}")
+    step_s = statistics.median(b - a for a, b in zip(times[1:], times[2:]))   # steps 3-10
+    flops = model_flops(cfg, ShapeConfig("phase10", "train", S, B))
+    print(f"  ms_per_step={1e3 * step_s:.1f} (median of steps 3-{steps}) "
+          f"tokens_per_s={B * S / step_s:.1f} model_flops_per_step={flops:.4e} "
+          f"mfu={flops / step_s / PEAK_FLOPS['bfloat16']:.4f} (of 989 TFLOP/s, active "
+          f"parameters) peak_memory={peak / 2**30:.2f} GiB")
+    final = state_fingerprints(torch, res.state)
+    res.state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the checkpoint restores bit-equal to the live state at `every`; the
+    # steps after it, on the run's own batches, give its losses and final
+    # state bit for bit (each of them a step run twice from the same state)
+    optimizer = AdamW(lr=warmup_cosine(lr, max(steps // 20, 2), steps))   # run_training's
+    state, at = restore_checkpoint(lake, "phase10", train_state_shape(cfg, optimizer),
+                                   device=dev)
+    del lake
+    gc.collect()
+    restored = state_fingerprints(torch, state)
+    moved = [k for k in at_save if restored.get(k) != at_save[k]]
+    print(f"  checkpoint at step {at}: {len(restored)} tensors restored, {len(moved)} differ "
+          f"from the live state's fingerprints at step {every}")
+    check(at == every and set(restored) == set(at_save) and not moved,
+          f"restored step {at}; tensors that differ: {moved[:5]}")
+    stream = SyntheticLM(cfg, B, S, seed=0)
+    batches = [next(stream) for _ in range(steps)][every:]
+    step_fn = make_train_step(cfg, optimizer)
+    replayed = []
+    for b in batches:
+        state, metrics = step_fn(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        replayed.append(float(metrics["loss"]))
+    moved = [k for k, fp in state_fingerprints(torch, state).items() if final.get(k) != fp]
+    print(f"  steps {every + 1}-{steps} from the restored state: losses {replayed}, the run's "
+          f"{res.losses[every:]}; {len(moved)} of {len(final)} final tensors differ")
+    check(replayed == res.losses[every:], "the restored state trains differently")
+    check(not moved, f"the replayed final state differs: {moved[:5]}")
+
+    # launches per step under each remat policy
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+    for remat, fwd in (("none", 1), ("full", 2), ("dots", 2)):
+        fn = make_train_step(cfg, optimizer, remat=remat)
+        reset_launches()
+        state, _ = fn(state, batch)
+        torch.cuda.synchronize()
+        got = launches_now()
+        print(f"  remat {remat!r}: launches per step {got}")
+        want = {name: fwd * layers if name in ("flash_attention", "moe_router") else count
+                for name, count in per_step.items()}
+        check(all(got[name] == want.get(name, 0) for name in got),
+              f"remat {remat}: {got}, expected {want}")
+
+    def one_step():
+        nonlocal state
+        state, metrics = step_fn(state, batch)
+        metrics["loss"].item()
+
+    served = profile_steps(torch, one_step, f"training step ({B} x {S} tokens)",
+                           n=TRAIN_PROFILE_STEPS)
+    T = B * S
+    products = product_us(torch, one_step, [[[T, cfg.n_experts], [cfg.n_experts, cfg.d_model]],
+                                            [[cfg.d_model, T], [T, cfg.n_experts]]],
+                          TRAIN_PROFILE_STEPS)
+    print(f"  the router backward's two f32 products (dlogits @ router^T, x^T @ dlogits): "
+          f"device us per step {'not measured' if products is None else f'{products:.2f}'}; "
+          f"moe_router_bwd {served['moe_router_bwd']:.2f}, moe_router {served['moe_router']:.2f}")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "served": served, "products_us": products}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the kernel table at serving shapes
 # ---------------------------------------------------------------------------
 
@@ -1384,7 +1746,8 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                      flash_attention_fwd)
-    from repro_torch.kernels.moe_gating import moe_gating, moe_router
+    from repro_torch.kernels.moe_gating import (moe_gating, moe_router, moe_router_bwd,
+                                                moe_router_fwd)
     from repro_torch.kernels.ssd_scan import ssd_state_scan
 
     gen = torch.Generator(device=dev)
@@ -1514,6 +1877,33 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             lambda: moe_gating(x, k), lambda: ref.moe_gating_ref(x, k),
             T * E * (4.0 + 2 * k), 4.0 * T * E + 8.0 * T * k, "float32", None, None, compare)
 
+    def router_bwd_row(T, D, E, k):
+        x = randn((T, D))
+        router = torch.randn((D, E), generator=gen, device=dev) * D ** -0.5
+        w, ids, probs = moe_router_fwd(x, router, k)
+        gw = torch.randn((T, k), generator=gen, device=dev)
+        gprobs = torch.randn((T, E), generator=gen, device=dev) / T
+        dlogits = moe_router_bwd(gw, gprobs, w, ids, probs)
+
+        def compare(out, want):
+            (err,), _, ok = grads_close([out], [want], ["float32"])
+            return err, ok
+
+        def products():        # as the op's backward runs them after the kernel
+            return (dlogits @ router.T).to(x.dtype), x.float().T @ dlogits
+
+        # bytes: probs, gprobs, gw, w and ids read once, dlogits written once
+        add("moe_router_bwd", "moe_router_bwd.cu", "src/repro/kernels/moe_gating.py:55",
+            f"qwen3-moe-30b-a3b training router backward (phase 10): T={T} E={E} k={k} f32, "
+            f"gprobs present", None, lambda: moe_router_bwd(gw, gprobs, w, ids, probs),
+            lambda: ref.moe_router_bwd_ref(gw, gprobs, w, ids, probs),
+            7.0 * T * E + 6.0 * T * k, 12.0 * T * E + 12.0 * T * k, "float32", None, None,
+            compare, counterpart="the gradient of moe_router; the reference differentiates "
+                                 "ref.moe_gating_ref and the product with XLA; no Pallas "
+                                 "backward",
+            products_ms=time_ms(torch, products, flush),
+            products_ms_read_flush=time_ms(torch, products, read_flush))
+
     def scan_row(B, C, H, P, N, launches):
         xs = torch.randn((B, C, H, P, N), generator=gen, device=dev)
         a = torch.rand((B, C, H), generator=gen, device=dev) * 0.69 + 0.3
@@ -1566,6 +1956,10 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     arch, B, S = TRAIN_RUN[:3]
     t = get_config(arch)
     bwd_row(arch, B, S, t.n_heads, t.n_kv_heads, t.hd)
+    # qwen3-moe-30b-a3b training (phase 10): the router backward of one
+    # layer; its launches and device us per step are phase 10's
+    B, S = MOE_TRAIN_RUN[2:4]
+    router_bwd_row(B * S, m.d_model, m.n_experts, m.top_k)
     for r in rows:
         print_row(r)
     return rows
@@ -1574,7 +1968,10 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
 def print_row(r):
     chain = (f", the chain it replaced {r['chain_ms']:.4f} / "
              f"{r['chain_ms_read_flush']:.4f} ms" if "chain_ms" in r else "")
-    step = "training step" if r["name"] == "flash_attention_bwd" else "decode step"
+    if "products_ms" in r:
+        chain = (f", the two f32 products after it {r['products_ms']:.4f} / "
+                 f"{r['products_ms_read_flush']:.4f} ms")
+    step = "training step" if r["name"].endswith("_bwd") else "decode step"
     print(f"  {r['name']}: {r['ms']:.4f} ms, {r['ms_read_flush']:.4f} ms under a read "
           f"flush (bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{chain}, "
@@ -1659,6 +2056,16 @@ def main() -> int:
             for r in rows:
                 if r["shape"].startswith(f"{TRAIN_RUN[0]} ") and r["name"] in execd:
                     r["phase9"] = execd[r["name"]]
+
+        with Phase(f"phase 10: train {MOE_TRAIN_RUN[0]} ({MOE_TRAIN_RUN[1]} layers) "
+                   f"through run_training"):
+            moe_trained = train_moe(torch, np, dev)
+            for r in rows:
+                if r["name"] == "moe_router_bwd":
+                    r["launches"] = moe_trained["launches"]["moe_router_bwd"]
+                    r["served_us_per_step"] = moe_trained["served"]["moe_router_bwd"]
+                    r["products_us_per_step"] = moe_trained["products_us"]
+                    print_row(r)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -23,7 +23,7 @@ __all__ = ["build", "library"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
-            "decode_attention.cu", "moe_gating.cu", "ssd_scan.cu")
+            "decode_attention.cu", "moe_gating.cu", "moe_router_bwd.cu", "ssd_scan.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -100,6 +100,8 @@ def library() -> ctypes.CDLL:
         lib.moe_gating_fwd.restype = i32
         lib.moe_router_fwd.argtypes = [ptr, i32] + [ptr] * 4 + [i32] * 7 + [ptr]
         lib.moe_router_fwd.restype = i32
+        lib.moe_router_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.moe_router_bwd.restype = i32
         lib.ssd_scan_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
         lib.ssd_scan_fwd.restype = i32
         _lib = lib

@@ -1,4 +1,5 @@
-"""Wrappers of the CUDA MoE router kernels (``csrc/moe_gating.cu``).
+"""Wrappers of the CUDA MoE router kernels (``csrc/moe_gating.cu``,
+``csrc/moe_router_bwd.cu``).
 
 ``moe_gating`` replaces ``repro/kernels/moe_gating.py::moe_gating`` (Pallas
 TPU): logits in, row softmax in f32, top-k with ties to the lowest expert
@@ -8,15 +9,20 @@ asserts T % 256 == 0 past 256 tokens), up to 256 experts and k <= 32.
 ``moe_router`` replaces the same kernel with the router product in front of
 it (``repro/models/moe.py:106``) and the softmax of the load-balance
 statistics behind it: x and the f32 router in, weights, ids and the
-probabilities out of one launch, the logits summed in f32.
+probabilities out of one launch, the logits summed in f32.  It carries a
+gradient: where autograd needs one, the call goes through the registered
+op ``repro_torch::moe_router``, whose backward launches ``moe_router_bwd``
+(the logits' gradient in closed form) and then the router's two f32
+products.  ``moe_gating`` has no backward and refuses inputs that require
+grad.
 
-Both run only on CUDA tensors; ``ops.moe_gating`` and ``ops.moe_router``
+All run only on CUDA tensors; ``ops.moe_gating`` and ``ops.moe_router``
 send CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,7 +30,8 @@ from ._build import library
 from .decode_attention import _sms
 from .flash_attention import refuse_grad
 
-__all__ = ["moe_gating", "moe_router", "router_plan", "MAX_EXPERTS", "MAX_K", "MAX_D"]
+__all__ = ["moe_gating", "moe_router", "moe_router_fwd", "moe_router_bwd", "router_plan",
+           "MAX_EXPERTS", "MAX_K", "MAX_D"]
 
 MAX_EXPERTS = 256   # eight register values per lane of the row's warp
 MAX_K = 32          # lane j keeps the j-th winner
@@ -85,12 +92,12 @@ def router_plan(tokens: int, d_model: int, sms: int) -> Tuple[int, int]:
     return 16, cluster
 
 
-def moe_router(x: torch.Tensor, router: torch.Tensor, k: int
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (T,D) bf16 or f32, router: (D,E) f32, both contiguous on one CUDA
-    device, D % 8 == 0 and D <= MAX_D -> (weights (T,k) f32, ids (T,k) int32,
-    probabilities (T,E) f32) of the logits ``x.float() @ router``."""
-    refuse_grad("moe_router", x, router)
+def moe_router_fwd(x: torch.Tensor, router: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the router kernel, no autograd: x (T,D) bf16 or f32,
+    router (D,E) f32, both contiguous on one CUDA device, D % 8 == 0 and
+    D <= MAX_D -> (weights (T,k) f32, ids (T,k) int32, probabilities (T,E)
+    f32) of the logits ``x.float() @ router``."""
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) \
@@ -124,4 +131,100 @@ def moe_router(x: torch.Tensor, router: torch.Tensor, k: int
     return w, ids, probs
 
 
-moe_router.launches = 0   # kernel launches since the count was last reset
+def _check_routed(name: str, t: torch.Tensor, shape, dtype, like: torch.Tensor) -> None:
+    if (t.device != like.device or tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {tuple(shape)} {dtype} tensor on "
+                         f"{like.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def moe_router_bwd(gw: torch.Tensor, gprobs: Optional[torch.Tensor], w: torch.Tensor,
+                   ids: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """The gradient of the router's logits (T,E) f32 from the gradients of
+    its weights ``gw`` (T,k) and probabilities ``gprobs`` (T,E) (None where
+    nothing reads them) and the forward's ``w``, ``ids`` and ``probs``, all
+    f32 (ids int32), contiguous, on one CUDA device: one launch of
+    ``csrc/moe_router_bwd.cu``, the closed form of ``ref.moe_router_bwd_ref``."""
+    if not probs.is_cuda:
+        raise ValueError(f"probs must be a CUDA tensor, got {probs.device}")
+    if probs.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"probs (T,E) and w (T,k) expected, got {tuple(probs.shape)} and "
+                         f"{tuple(w.shape)}")
+    T, E = probs.shape
+    k = w.shape[1]
+    _check_experts(T, E, k)
+    _check_routed("probs", probs, (T, E), torch.float32, probs)
+    _check_routed("w", w, (T, k), torch.float32, probs)
+    _check_routed("gw", gw, (T, k), torch.float32, probs)
+    _check_routed("ids", ids, (T, k), torch.int32, probs)
+    if gprobs is not None:
+        _check_routed("gprobs", gprobs, (T, E), torch.float32, probs)
+    dlogits = torch.empty((T, E), dtype=torch.float32, device=probs.device)
+    err = library().moe_router_bwd(
+        gw.data_ptr(), None if gprobs is None else gprobs.data_ptr(), w.data_ptr(),
+        ids.data_ptr(), probs.data_ptr(), dlogits.data_ptr(), probs.device.index, T, E, k,
+        torch.cuda.current_stream(probs.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"moe_router_bwd kernel launch failed: CUDA error {err}")
+    moe_router_bwd.launches += 1
+    return dlogits
+
+
+moe_router_bwd.launches = 0   # kernel launches since the count was last reset
+
+
+# The differentiable form, as ``flash_attention.py`` registers attention's:
+# one op that autograd and torch.utils.checkpoint's selective policies see.
+# It saves x, the router and the forward's outputs; its backward launches
+# moe_router_bwd, then the router's two f32 products (the reference leaves
+# them to XLA, outside the Pallas kernel).
+@torch.library.custom_op("repro_torch::moe_router", mutates_args=(), device_types="cuda")
+def _router_op(x: torch.Tensor, router: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return moe_router_fwd(x, router, k)
+
+
+@_router_op.register_fake
+def _(x, router, k):
+    T, E = x.shape[0], router.shape[1]
+    return (x.new_empty((T, k), dtype=torch.float32), x.new_empty((T, k), dtype=torch.int32),
+            x.new_empty((T, E), dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output):
+    x, router, _ = inputs
+    w, ids, probs = output
+    ctx.mark_non_differentiable(ids)
+    ctx.set_materialize_grads(False)       # an unread output's gradient is None
+    ctx.save_for_backward(x, router, w, ids, probs)
+
+
+def _backward(ctx, gw, _gids, gprobs):
+    x, router, w, ids, probs = ctx.saved_tensors
+    if gw is None and gprobs is None:
+        return None, None, None
+    gw = torch.zeros_like(w) if gw is None else gw.float().contiguous()
+    gprobs = None if gprobs is None else gprobs.float().contiguous()
+    dlogits = moe_router_bwd(gw, gprobs, w, ids, probs)
+    dx = (dlogits @ router.T).to(x.dtype) if ctx.needs_input_grad[0] else None
+    drouter = x.float().T @ dlogits if ctx.needs_input_grad[1] else None
+    return dx, drouter, None
+
+
+_router_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def moe_router(x: torch.Tensor, router: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (T,D) bf16 or f32, router: (D,E) f32 -> (weights (T,k) f32, ids
+    (T,k) int32, probabilities (T,E) f32), as ``moe_router_fwd``.  Where
+    autograd needs a gradient (grad mode on, x or the router requiring
+    grad) the call goes through the registered op, whose backward is
+    ``moe_router_bwd`` and the two products; otherwise (serving) one
+    forward launch."""
+    if torch.is_grad_enabled() and (x.requires_grad or router.requires_grad):
+        return torch.ops.repro_torch.moe_router(x, router, k)
+    return moe_router_fwd(x, router, k)
+
+
+moe_router.launches = 0   # forward kernel launches since the count was last reset

@@ -3,8 +3,10 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the plain PyTorch version, differentiated by autograd.
 There is no switch that sends a CUDA tensor to the plain version.
-``attention`` carries a gradient on the card through the backward kernel;
-the other kernels have no backward yet and raise where autograd would need
+``attention`` and ``moe_router`` carry gradients on the card, each through
+its registered op and its backward kernel (``flash_attention_bwd``,
+``moe_router_bwd``); ``decode_attention``, ``moe_gating`` and
+``ssd_state_scan`` have no backward yet and raise where autograd would need
 one.
 """
 

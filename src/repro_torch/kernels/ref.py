@@ -13,7 +13,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 __all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref",
-           "decode_attention_ref", "ssd_state_scan_ref", "moe_gating_ref", "moe_router_ref"]
+           "decode_attention_ref", "ssd_state_scan_ref", "moe_gating_ref", "moe_router_ref",
+           "moe_router_bwd_ref"]
 
 _NEG = -1e30
 
@@ -149,3 +150,24 @@ def moe_router_ref(x: torch.Tensor, router: torch.Tensor, k: int
     logits = x.float() @ router
     w, ids = moe_gating_ref(logits, k)
     return w, ids, torch.softmax(logits, dim=-1)
+
+
+def moe_router_bwd_ref(gw: torch.Tensor, gprobs: Optional[torch.Tensor], w: torch.Tensor,
+                       ids: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """The closed-form gradient of ``moe_router_ref``'s outputs with respect
+    to its logits, as the backward kernel computes it: gw (T,k) and gprobs
+    (T,E) (None where nothing reads the probabilities) against the forward's
+    weights w (T,k), ids (T,k) and probabilities p (T,E) -> dlogits (T,E)
+    in f32 (f64 for f64 probabilities).  With s_j = p[ids_j] and S = sum_j s_j (w_j = s_j / S):
+    ds_j = (gw_j - sum_i gw_i w_i) / S; g = gprobs + ds scattered to ids;
+    dlogits = p (g - sum_e p_e g_e).  The router's products follow from
+    it: dx = dlogits @ router^T in x's dtype, drouter = x.float()^T @
+    dlogits."""
+    dt = torch.promote_types(probs.dtype, torch.float32)
+    p, gw, w = probs.to(dt), gw.to(dt), w.to(dt)
+    idx = ids.long()
+    s = p.gather(1, idx)
+    ds = (gw - (gw * w).sum(dim=1, keepdim=True)) / s.sum(dim=1, keepdim=True)
+    g = torch.zeros_like(p) if gprobs is None else gprobs.to(dt, copy=True)
+    g.scatter_add_(1, idx, ds)
+    return p * (g - (p * g).sum(dim=1, keepdim=True))

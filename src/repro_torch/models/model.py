@@ -4,8 +4,8 @@ init_cache}, the input specs of a cell, and its analytic FLOPs.
 The port's counterpart of ``repro/models/model.py`` for the families it has
 ported so far: the dense decoder, which also runs the ``vlm`` family (the
 early-fusion backbone, as the JAX package runs it), the MoE decoder and the
-Mamba2 hybrid.  The dense and vlm families train; the MoE and hybrid
-families serve but do not train yet (their kernels have no backward).  The
+Mamba2 hybrid.  The dense, vlm and MoE families train; the hybrid family
+serves but does not train yet (``ssd_state_scan`` has no backward).  The
 ssm and encdec families raise until their slices land.
 """
 
@@ -27,7 +27,7 @@ __all__ = ["ModelBundle", "PORTED_FAMILIES", "TRAINED_FAMILIES", "bundle_for",
            "model_flops"]
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
-TRAINED_FAMILIES = ("dense", "vlm")
+TRAINED_FAMILIES = ("dense", "vlm", "moe")
 
 
 @dataclass(frozen=True)
@@ -58,9 +58,8 @@ def model_module(cfg: ArchConfig) -> ModuleType:
 
 def _loss_not_ported(cfg: ArchConfig, *args, **kwargs):
     raise NotImplementedError(
-        f"training the {cfg.family} family is not ported yet: its kernels "
-        f"({'moe_router' if cfg.family == 'moe' else 'ssd_state_scan'}) have no backward; "
-        "see ROADMAP (Queue 2)")
+        f"training the {cfg.family} family is not ported yet: its kernel (ssd_state_scan) "
+        "has no backward; see ROADMAP (Queue 2)")
 
 
 def bundle_for(cfg: ArchConfig) -> ModelBundle:

@@ -1,9 +1,12 @@
 """Mixture-of-Experts transformer (qwen3-moe-30b-a3b, grok-1-314b), ported
-from ``repro/models/moe.py`` for serving on one device.
+from ``repro/models/moe.py``: init, the training loss with its Switch
+load-balance term (the reference's remat policies), prefill, decode, on one
+device.
 
 Dispatch is the reference's sort-based capacity dispatch (``_local_moe``):
 tokens are routed by ``ops.moe_router`` (on the card one CUDA kernel for
-the router product, softmax and top-k), sorted by expert, scattered into an
+the router product, softmax and top-k, whose gradient is the
+``moe_router_bwd`` kernel), sorted by expert, scattered into an
 ``(E, cap, D)`` buffer and multiplied by every expert in three batched
 matrix products; assignments past an expert's capacity are dropped.  Only
 the single-device branch of ``moe_block`` is ported; the expert-parallel
@@ -14,7 +17,8 @@ the MoE.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +31,8 @@ from . import layers as L
 from . import transformer as T
 
 __all__ = ["MoE", "Block", "Model", "init_moe", "init", "init_cache",
-           "moe_block", "hidden", "apply", "prefill", "decode_step"]
+           "moe_block", "hidden", "apply", "AUX_LOSS_COEF", "loss_fn", "prefill",
+           "decode_step"]
 
 init_cache = T.init_cache
 
@@ -157,28 +162,49 @@ def _moe_ffn(cfg: ArchConfig, blk: Block, h: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# forward and serving
+# forward, loss and serving
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def hidden(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(final hidden states (B, S, D), mean per-layer load-balance aux)."""
+def _block_fwd(cfg: ArchConfig, blk: Block, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm block: (its output, its load-balance aux)."""
+    h = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)
+    x = x + L.attention_block(blk.attn, h, n_heads=cfg.n_heads,
+                              n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                              theta=cfg.rope_theta, eps=cfg.norm_eps)
+    y, aux = moe_block(cfg, blk.moe, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
+    return x + y, aux
+
+
+def hidden(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor, *,
+           remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final hidden states (B, S, D), mean per-layer load-balance aux).
+    Each block, its aux included, runs under the remat policy, as the
+    reference's scan body does; under autograd unless the caller turns it
+    off."""
     x = L.embed_lookup(params.embed, tokens)
+    body = T._remat_wrap(functools.partial(_block_fwd, cfg), remat)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
-        h = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)
-        x = x + L.attention_block(blk.attn, h, n_heads=cfg.n_heads,
-                                  n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                                  theta=cfg.rope_theta, eps=cfg.norm_eps)
-        y, aux = moe_block(cfg, blk.moe, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
-        x = x + y
+        x, aux = body(blk, x)
         aux_sum = aux_sum + aux
     return x, aux_sum / cfg.n_layers
 
 
+@torch.no_grad()
 def apply(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor) -> torch.Tensor:
     return T.logits_of(cfg, params, hidden(cfg, params, tokens)[0])
+
+
+AUX_LOSS_COEF = 0.01   # the Switch Transformer's coefficient, as the reference's
+
+
+def loss_fn(cfg: ArchConfig, params: T.Transformer, batch: Dict[str, torch.Tensor], *,
+            remat: str = "none") -> torch.Tensor:
+    """Mean next-token loss of ``batch`` ({"tokens", "labels"}, (B, S)) plus
+    AUX_LOSS_COEF times the mean per-layer load-balance term."""
+    x, aux = hidden(cfg, params, batch["tokens"], remat=remat)
+    return T.lm_loss(cfg, params, x, batch["labels"]) + AUX_LOSS_COEF * aux
 
 
 def prefill(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor,

@@ -182,16 +182,17 @@ def test_executors_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_endpoints_list_only_what_the_port_runs():
-    """train: the archs whose resolved family the port trains (dense, vlm);
-    serve: every ported family; an app left with no arch gets no endpoint
-    (an endpoint with no archs would take any)."""
+    """train: the archs whose resolved family the port trains (dense, vlm,
+    moe); serve: every ported family; an app left with no arch gets no
+    endpoint (an endpoint with no archs would take any)."""
     names = list(registry()) + SMOKE_NAMES + ["not-a-model"]
     train, serve, blast = standard_endpoints(names, device="cpu")
     assert (train.app, serve.app, blast.app) == ("train", "serve", "blast")
     fam = {n: jex._resolve_arch(n).family for n in names if n != "not-a-model"}
-    assert train.archs == tuple(n for n in fam if fam[n] in ("dense", "vlm"))
+    assert train.archs == tuple(n for n in fam if fam[n] in ("dense", "vlm", "moe"))
     assert serve.archs == tuple(n for n in fam if fam[n] in ("dense", "vlm", "moe", "hybrid"))
-    assert "qwen3-1.7b-smoke" not in train.archs and "qwen3-1.7b" in train.archs
+    assert {"qwen3-1.7b-smoke", "qwen3-moe-30b-a3b", "qwen3-1.7b"} <= set(train.archs)
+    assert "zamba2-2.7b" not in train.archs
     assert serve.families == ("dense", "vlm")
     assert [e.app for e in standard_endpoints(["xlstm-350m"], device="cpu")] == ["blast"]
 
@@ -254,18 +255,17 @@ def _solo_plan(kind, fields):
     return plan.finalize().payload
 
 
-@pytest.mark.parametrize("first,then", [("jax", "torch"), ("torch", "jax")])
-def test_train_job_resumes_on_the_other_framework(monkeypatch, first, then):
-    """lidc-demo-smoke, 4 steps, a checkpoint every 2: the nearer pod dies
-    just after its step-2 checkpoint; the client re-expresses the same name
-    (``resilient_run``) and the other framework's pod resumes from that
-    checkpoint.  Steps 3-4 are held to a run of the first framework alone at
-    the bf16 tolerance (both restore the step-2 state and restart the data
-    stream from its seed)."""
+def resume_on_the_other_framework(monkeypatch, first, then, arch):
+    """A train job of ``arch``, 4 steps, a checkpoint every 2: the nearer
+    pod (``first``'s framework) dies just after its step-2 checkpoint; the
+    client re-expresses the same name (``resilient_run``) and the other
+    framework's pod resumes from that checkpoint.  Steps 3-4 are held to a
+    run of the first framework alone at the bf16 tolerance (both restore
+    the step-2 state and restart the data stream from its seed).  Returns
+    the job's result."""
     log = _record_training(monkeypatch)
     system = mixed_fleet((first, then))
-    fields = {"app": "train", "arch": "lidc-demo-smoke", "shape": "custom", "chips": 1,
-              "steps": 4}
+    fields = {"app": "train", "arch": arch, "shape": "custom", "chips": 1, "steps": 4}
     run_name = "train-" + JobSpec("train", {k: v for k, v in fields.items()
                                             if k != "app"}).signature()
     killed = []
@@ -294,27 +294,36 @@ def test_train_job_resumes_on_the_other_framework(monkeypatch, first, then):
     np.testing.assert_allclose(resumed, log[1][2], atol=3e-2, rtol=3e-2)
     assert handle.result["final_loss"] == resumed[-1]
     assert solo["final_loss"] == pytest.approx(resumed[-1], abs=3e-2, rel=3e-2)
+    return handle.result
+
+
+@pytest.mark.parametrize("first,then", [("jax", "torch"), ("torch", "jax")])
+def test_train_job_resumes_on_the_other_framework(monkeypatch, first, then):
+    """lidc-demo-smoke (``resume_on_the_other_framework``)."""
+    resume_on_the_other_framework(monkeypatch, first, then, "lidc-demo-smoke")
 
 
 def test_archs_the_port_cannot_run_are_placed_elsewhere(monkeypatch):
-    """xlstm-350m-smoke (ssm) and qwen3-1.7b-smoke (resolved to the MoE
-    smoke) train jobs land on the reference's pod, though the port's is the
-    nearer; with only the port's pod they are placed nowhere, while a serve
-    job completes there.  Placement is what is tested: the reference's pod
-    simulates the jobs (its real-compute limit set to 0 here)."""
+    """An xlstm-350m-smoke (ssm) train job lands on the reference's pod,
+    though the port's is the nearer; with only the port's pod it is placed
+    nowhere, while a serve job completes there.  A qwen3-1.7b-smoke train
+    job (resolved to the MoE smoke, which the port trains) lands on the
+    port's nearer pod.  Placement is what is tested: the reference's pod
+    simulates its jobs (its real-compute limit set to 0 here)."""
     monkeypatch.setattr(jex, "_REAL_TRAIN_PARAM_LIMIT", 0)
     system = mixed_fleet(("torch", "jax"))
-    for arch in ("xlstm-350m-smoke", "qwen3-1.7b-smoke"):
+    for arch, pod in (("xlstm-350m-smoke", "jax"), ("qwen3-1.7b-smoke", "torch")):
         handle = system.client.run_job({"app": "train", "arch": arch, "shape": "custom",
                                         "chips": 1, "steps": 2})
-        assert handle.state == "Completed" and handle.result["cluster"] == POD["jax"], arch
-    assert not system.overlay.clusters[POD["torch"]].jobs
+        assert handle.state == "Completed" and handle.result["cluster"] == POD[pod], arch
+    assert handle.result["arch"] == "qwen3-moe-smoke" and handle.result["real_compute"]
+    assert [job.spec.arch for job in system.overlay.clusters[POD["torch"]].jobs.values()] \
+        == ["qwen3-1.7b-smoke"]
 
     alone = mixed_fleet(("torch",))
-    for arch in ("xlstm-350m-smoke", "qwen3-1.7b-smoke"):
-        handle = alone.client.submit({"app": "train", "arch": arch, "shape": "custom",
-                                      "chips": 1, "steps": 2})
-        assert handle is None, arch
+    handle = alone.client.submit({"app": "train", "arch": "xlstm-350m-smoke",
+                                  "shape": "custom", "chips": 1, "steps": 2})
+    assert handle is None
     assert not alone.overlay.clusters[POD["torch"]].jobs
     handle = alone.client.run_job({"app": "serve", "arch": "chameleon-smoke",
                                    "requests": 3, "new_tokens": 4})

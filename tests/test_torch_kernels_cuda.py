@@ -5,11 +5,12 @@ This file imports no JAX, so it also runs on a GPU machine without it:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 3e-2 in bf16;
-decode outputs and attention gradients are also held row by row to a share
-of each row's size, as in chip_smoke.py.  ``moe_router`` sums its logits in another order than
-cuBLAS, so its ids are compared tie-aware, as in chip_smoke.py: at every
-rank the kernel's expert must have a plain probability within
-ROUTER_TIE_DELTA of the plain choice's.
+decode outputs and attention and router gradients are also held row by row
+to a share of each row's size, as in chip_smoke.py.  ``moe_router`` sums
+its logits in another order than cuBLAS, so its ids are compared
+tie-aware, as in chip_smoke.py: at every rank the kernel's expert must
+have a plain probability within ROUTER_TIE_DELTA of the plain choice's,
+and its gradient is held where the routing is pinned to the kernel's.
 """
 
 import numpy as np
@@ -20,7 +21,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                  flash_attention_fwd)
-from repro_torch.kernels.moe_gating import moe_gating, moe_router
+from repro_torch.kernels.moe_gating import moe_gating, moe_router, moe_router_bwd, moe_router_fwd
 from repro_torch.kernels.ssd_scan import ssd_state_scan
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -235,18 +236,16 @@ def test_flash_attention_bwd_is_bit_repeatable(cuda_device):
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda_device):
     """A kernel whose output would carry no gradient raises instead of
-    training nothing upstream of it; under no_grad it runs."""
+    training nothing upstream of it; under no_grad it runs.  (moe_router
+    carries one since it has a backward: its own tests below.)"""
     q, ck, cv = _randn(10, (2, 1, 16, 128), (2, 64, 8, 128), (2, 64, 8, 128),
                        dtype="bfloat16", device=cuda_device)
     logits = torch.randn((4, 128), device=cuda_device)
-    x = torch.randn((4, 2048), device=cuda_device).to(torch.bfloat16)
-    router = torch.randn((2048, 128), device=cuda_device) * 2048 ** -0.5
     xs = torch.randn((1, 3, 4, 16, 16), device=cuda_device)
     decays = torch.rand((1, 3, 4), device=cuda_device)
     calls = {
         "flash_decode": lambda g: flash_decode(g(q), ck, cv, 8),
         "moe_gating": lambda g: moe_gating(g(logits), 8),
-        "moe_router": lambda g: moe_router(x, g(router), 8),
         "ssd_state_scan": lambda g: ssd_state_scan(g(xs), decays),
     }
     for name, call in calls.items():
@@ -422,6 +421,138 @@ def test_moe_router_kernel_breaks_exact_ties_to_the_lowest_index(cuda_device, T,
     assert torch.equal(ids, want_ids)
     _assert_close(w, want_w, "float32")
     _assert_close(probs, want_probs, "float32")
+
+
+def _router_bwd_inputs(T, E, k, dup, device, seed):
+    """The forward kernel's (w, ids, probs) on x (T,256) and a router at the
+    model's scale (``dup``: columns repeated, exact ties), and random
+    cotangents gw (T,k), gprobs (T,E)."""
+    x, router = _router_inputs(T, 256, E if not dup else -(-E // 8), "float32", device, seed)
+    if dup:
+        router = router.repeat_interleave(8, dim=1)[:, :E].contiguous()
+    w, ids, probs = moe_router_fwd(x, router, k)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    gw = torch.randn((T, k), generator=gen, device=device)
+    gprobs = torch.randn((T, E), generator=gen, device=device)
+    return x, router, (gw, gprobs, w, ids, probs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_gprobs", [True, False])
+@pytest.mark.parametrize("T,E,k,dup", [
+    *((T, E, k, False) for T in (1, 4, 9, 300) for E, k in ((8, 1), (8, 2), (60, 2),
+                                                             (60, 8), (128, 1), (128, 8))),
+    (4, 128, 8, True), (300, 128, 8, True), (9, 60, 8, True),
+    (4096, 128, 8, False), (4096, 256, 8, False), (33, 256, 32, False), (4096, 256, 32, True),
+])
+def test_moe_router_bwd_kernel_matches_plain(cuda_device, T, E, k, dup, with_gprobs):
+    """The backward kernel against its closed form on the forward kernel's
+    own outputs, gprobs present and absent (a null pointer)."""
+    _, _, (gw, gprobs, w, ids, probs) = _router_bwd_inputs(T, E, k, dup, cuda_device, T + E)
+    gp = gprobs if with_gprobs else None
+    before = moe_router_bwd.launches
+    got = moe_router_bwd(gw, gp, w, ids, probs)
+    assert moe_router_bwd.launches == before + 1
+    _assert_close(got, ref.moe_router_bwd_ref(gw, gp, w, ids, probs), "float32")
+
+
+def _pinned_router(x, router, ids):
+    """The plain router's weights and probabilities with the routing taken
+    from ``ids`` (the kernel's), differentiable in x and the router."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    s = probs.gather(1, ids.long())
+    return s / s.sum(dim=1, keepdim=True), probs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [4, 1200])
+def test_moe_router_gradient_goes_through_the_backward_kernel(cuda_device, dtype, T):
+    """``moe_router`` on CUDA tensors that require grad: one forward and one
+    backward launch, and dx (in x's dtype) and drouter (f32) those of
+    autograd through the plain router with the kernel's routing (the two sum
+    the logits in other orders, so a near tie may route differently); rows
+    of dx also within GRAD_ROW_TOL of their size.  Without grad (serving)
+    one forward launch and no graph."""
+    x, router = _router_inputs(T, 2048, 128, dtype, cuda_device, seed=T)
+    gen = torch.Generator(device=cuda_device).manual_seed(T)
+    gw = torch.randn((T, 8), generator=gen, device=cuda_device)
+    gprobs = torch.randn((T, 128), generator=gen, device=cuda_device) / T
+    leaves = [x.clone().requires_grad_(), router.clone().requires_grad_()]
+    fwd, bwd = moe_router.launches, moe_router_bwd.launches
+    w, ids, probs = ops.moe_router(*leaves, 8)
+    assert w.grad_fn is not None and not ids.requires_grad
+    got = torch.autograd.grad([w, probs], leaves, [gw, gprobs])
+    assert (moe_router.launches, moe_router_bwd.launches) == (fwd + 1, bwd + 1)
+    assert got[0].dtype == x.dtype and got[1].dtype == torch.float32
+    plain = [x.clone().requires_grad_(), router.clone().requires_grad_()]
+    want = torch.autograd.grad(_pinned_router(*plain, ids), plain, [gw, gprobs])
+    for g, h in zip(got, want):
+        _assert_close(g, h, dtype if g.dtype == x.dtype else "float32")
+    _assert_grad_rows_close(got[0], want[0], dtype)
+    # the weights' gradient alone: the probabilities' arrives as None
+    w, _, _ = ops.moe_router(*leaves, 8)
+    got_w = torch.autograd.grad(w, leaves, gw)
+    want_w = torch.autograd.grad(_pinned_router(*plain, ids)[0], plain, gw)
+    for g, h in zip(got_w, want_w):
+        _assert_close(g, h, dtype if g.dtype == x.dtype else "float32")
+    with torch.no_grad():
+        fwd, bwd = moe_router.launches, moe_router_bwd.launches
+        assert ops.moe_router(*leaves, 8)[0].grad_fn is None
+        assert (moe_router.launches, moe_router_bwd.launches) == (fwd + 1, bwd)
+
+
+@pytest.mark.cuda
+def test_moe_router_backward_is_bit_repeatable(cuda_device):
+    _, _, inputs = _router_bwd_inputs(4096, 128, 8, False, cuda_device, 5)
+    assert torch.equal(moe_router_bwd(*inputs), moe_router_bwd(*inputs))
+    x, router = _router_inputs(4096, 2048, 128, "bfloat16", cuda_device, seed=6)
+    gw = torch.randn((4096, 8), device=cuda_device)
+
+    def grads():
+        leaves = [x.clone().requires_grad_(), router.clone().requires_grad_()]
+        w, _, probs = moe_router(*leaves, 8)
+        return torch.autograd.grad((w * gw).sum() + probs.mean(0).square().sum(), leaves)
+
+    for g, h in zip(grads(), grads()):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+def test_moe_router_op_under_checkpoint(cuda_device):
+    """Under ``torch.utils.checkpoint`` the forward runs again in the
+    backward pass (two forward launches, one backward) and routes the same
+    tokens: the gradients equal the unrecomputed ones bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+    x, router = _router_inputs(1200, 2048, 128, "bfloat16", cuda_device, seed=7)
+    gw = torch.randn((1200, 8), device=cuda_device)
+
+    def f(a, b):
+        w, _, probs = moe_router(a, b, 8)
+        return (w * gw).sum() + probs.mean(0).square().sum()
+
+    leaves = [x.clone().requires_grad_(), router.clone().requires_grad_()]
+    want = torch.autograd.grad(f(*leaves), leaves)
+    fwd, bwd = moe_router.launches, moe_router_bwd.launches
+    got = torch.autograd.grad(checkpoint(f, *leaves, use_reentrant=False), leaves)
+    assert (moe_router.launches, moe_router_bwd.launches) == (fwd + 2, bwd + 1)
+    for g, h in zip(got, want):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+def test_moe_router_bwd_refuses_what_it_does_not_take(cuda_device):
+    _, _, (gw, gprobs, w, ids, probs) = _router_bwd_inputs(8, 64, 4, False, cuda_device, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_router_bwd(gw.cpu(), None, w.cpu(), ids.cpu(), probs.cpu())
+    with pytest.raises(ValueError, match="ids must be"):
+        moe_router_bwd(gw, gprobs, w, ids.long(), probs)
+    with pytest.raises(ValueError, match="gprobs must be"):
+        moe_router_bwd(gw, gprobs[:, :32], w, ids, probs)
+    with pytest.raises(ValueError, match="gw must be"):
+        moe_router_bwd(gw.t().contiguous().t(), gprobs, w, ids, probs)
+    with pytest.raises(ValueError, match="E <= 256"):
+        moe_router_bwd(gw, None, w, ids, torch.zeros((8, 300), device=cuda_device))
 
 
 @pytest.mark.cuda
