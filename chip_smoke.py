@@ -21,7 +21,12 @@
    (1-4096, E = 128, k = 8), with and without the probabilities' gradient
    and with repeated probabilities, against its closed form, and the
    registered router op's dx and drouter against autograd through the
-   plain router with the kernel's routing);
+   plain router with the kernel's routing); the reverse state scan at phase
+   11's block, a ragged P*N, one chunk and three passes over a (b, h) pair,
+   with and without an initial state and the final state's gradient,
+   against its closed form and autograd through the plain scan, bit-equal
+   when run twice, and the registered scan op's gradients against
+   autograd);
 3. serves qwen3-1.7b at full width and depth (random weights from a seeded
    ``torch.Generator``) through ``ServeEngine``: 12 requests, prompts of
    8-1500 tokens, 32 new tokens each, mixed priorities, 8 slots; then one
@@ -42,9 +47,10 @@
    bound, its plain version and one PyTorch library call where one exists,
    with L2 flushed by writing and by reading 256 MB, and prints the table
    as JSON; the attention backward at phase 8's layer shape beside its
-   bound, its plain version and autograd through PyTorch's SDPA; and the
+   bound, its plain version and autograd through PyTorch's SDPA; the
    router backward at phase 10's shape beside its bound, its plain version
-   and the two f32 products that follow it;
+   and the two f32 products that follow it; and the state scan and its
+   reverse at phase 11's Mamba2 block;
 8. trains qwen3-1.7b at full width and depth (1.72 B params, bf16, f32
    AdamW moments) through ``run_training``: 10 steps of 4 x 1024 synthetic
    tokens, checkpoints every 5 steps into an in-memory lake.  Gates: the
@@ -83,12 +89,24 @@
    and final state bit for bit.  Prints ms per step, tokens/s, the
    model-FLOPs share of 989 TFLOP/s (active parameters), peak memory, the
    idle share over profiled steps, and the device us per step of the
-   repo's kernels and of the router backward's two products.
+   repo's kernels and of the router backward's two products;
+11. trains zamba2-2.7b at full width and depth (54 Mamba2 blocks, the
+   shared block applied 9 times; 2.60 B params, bf16, f32 AdamW moments,
+   ~31 GB of state) through ``run_training`` under remat "full" (each
+   super-block recomputed in the backward pass): 10 steps of 4 x 1024
+   synthetic tokens, warmup-cosine to 3e-4, the step-5 checkpoint kept.
+   Gates as phase 10's: gradients and the tokens' losses on one batch,
+   bit-equal when run twice; 18 forward and 9 backward attention launches
+   and 108 forward and 54 backward scan launches per step (9 / 9 / 54 / 54
+   on the gate batch under remat "none"; "dots" as "full"); finite losses
+   that fall; the checkpoint restored bit-equal and steps 6-10 replayed
+   bit for bit.  Prints phase 10's measures and the device us per step of both
+   attention kernels and both scan kernels beside their bounds.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
 profiled decode steps give each kernel's device time per served step.
-Phases 8, 9 and 10 do the same around their runs and profiled steps.  The last
+Phases 8-11 do the same around their runs and profiled steps.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero and
 prints no result.
@@ -162,6 +180,13 @@ MOE_TEACHER_LAYERS = 4      # f32 at 48 layers would need ~122 GB
 # phase 10: (arch, layers kept, batch, sequence, steps, checkpoint at, peak
 # lr); 48 layers of bf16 weights and gradients and f32 moments: ~370 GB
 MOE_TRAIN_RUN = ("qwen3-moe-30b-a3b", 4, 4, 1024, 10, 5, 3e-3)
+
+# phase 11: (arch, batch, sequence, steps, checkpoint at, peak lr, remat);
+# under remat "none" the 54 blocks' activations (~1.5 GB each at 4 x 1024)
+# would not fit beside ~31 GB of state.  At a peak of 3e-3 (phases 8 and
+# 10's) or 1e-3 the loss rises again after its first steps; at 3e-4 it
+# falls (scripts/hybrid_lr_sweep.py, numbers in PERF.md)
+HYBRID_TRAIN_RUN = ("zamba2-2.7b", 4, 1024, 10, 5, 3e-4, "full")
 
 
 class Phase:
@@ -245,11 +270,11 @@ def kernels():
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.moe_gating import moe_gating, moe_router, moe_router_bwd
-    from repro_torch.kernels.ssd_scan import ssd_state_scan
+    from repro_torch.kernels.ssd_scan import ssd_state_scan, ssd_state_scan_bwd
     return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
             "flash_decode": flash_decode, "moe_gating": moe_gating,
             "moe_router": moe_router, "moe_router_bwd": moe_router_bwd,
-            "ssd_state_scan": ssd_state_scan}
+            "ssd_state_scan": ssd_state_scan, "ssd_state_scan_bwd": ssd_state_scan_bwd}
 
 
 # wrapper -> a part of the name of every CUDA kernel it launches, as the
@@ -263,6 +288,7 @@ KERNEL_SYMBOLS = {
     "moe_router": ("moe_router_kernel", "moe_router_decode_kernel"),
     "moe_router_bwd": ("moe_router_bwd_kernel",),
     "ssd_state_scan": ("ssd_scan_kernel",),
+    "ssd_state_scan_bwd": ("ssd_scan_bwd_kernel",),
 }
 
 
@@ -435,6 +461,13 @@ ROUTER_BWD_ROWS = [1, 4, 8, 9, 1200, 4096]
 ROUTER_OP_ROWS = [4, 1200, 4096]
 
 SCAN_CASES = [(1, 3, 64, 80, 64), (2, 5, 4, 16, 16)]   # (B, C, H, P, N)
+SCAN_BWD_CASES = [  # (B, C, H, P, N)
+    (4, 4, 64, 80, 64),     # phase 11's Mamba2 block: zamba2-2.7b, 4 x 1024 tokens
+    (2, 5, 4, 16, 16),
+    (1, 1, 2, 8, 8),        # one chunk
+    (3, 3, 5, 7, 9),        # P*N = 63, ragged against the kernel's passes of 2560
+    (1, 6, 2, 80, 65),      # P*N = 5200: three passes over a (b, h) pair
+]
 
 
 def check_kernels(torch, dev):
@@ -486,6 +519,7 @@ def check_kernels(torch, dev):
     check_moe_router(torch, dev, gen)
     check_moe_router_bwd(torch, dev, gen)
     check_ssd_scan(torch, dev, gen)
+    check_ssd_scan_bwd(torch, dev, gen)
 
 
 def check_attention_bwd(torch, dev, gen):
@@ -696,6 +730,91 @@ def check_ssd_scan(torch, dev, gen):
                   f"final={err_f:.3e} (tol {TOL['float32']})")
             check(ok_p and ok_f, f"ssd_state_scan disagrees with ssd_state_scan_ref: "
                                  f"{err_p} / {err_f}")
+
+
+def scan_bwd_close(got, want, prefix, tol=TOL["float32"]):
+    """(largest elementwise err, within tolerance) of the reverse scan's
+    (d_states, d_decays, d_init) against ``want``: d_states and d_init
+    elementwise at ``tol``; each d_decays[b, c, h], a sum of P*N products
+    G * prefix[c] taken in another order (its rounding grows as the
+    products' Euclidean norm, ~3e-5 at zamba2's 5120 products of size ~2),
+    also within ``tol`` of that norm."""
+    errs, ok = [], True
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        if (g is None) != (w is None):
+            return float("inf"), False
+        if g is not None:
+            err, ok_e = max_err(g, w, tol)
+            errs.append(err)
+            ok = ok and ok_e
+    scale = (want[0].float() * prefix.float()).flatten(3).norm(dim=-1)
+    err = (got[1].float() - want[1].float()).abs()
+    errs.append(float(err.max()))
+    return max(errs), ok and bool((err <= tol + tol * want[1].abs() + tol * scale).all())
+
+
+def autograd_scan(torch, leaves, g_prefix, g_final):
+    """Autograd's (d_states, d_decays, d_init or None) through the plain
+    scan from the cotangents (None: nothing reads that output); zeros where
+    no path leads to a leaf (one chunk and no initial state: a constant
+    prefix)."""
+    from repro_torch.kernels import ref
+    outs = ref.ssd_state_scan_ref(*leaves)
+    dot = sum((o * g).sum() for o, g in zip(outs, (g_prefix, g_final)) if g is not None)
+    grads = (torch.autograd.grad(dot, leaves, allow_unused=True) if dot.requires_grad
+             else [None] * len(leaves))
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+    return grads[0], grads[1], grads[2] if len(grads) == 3 else None
+
+
+def check_ssd_scan_bwd(torch, dev, gen):
+    """The reverse scan against ``ref.ssd_state_scan_bwd_ref`` and autograd
+    through the plain scan, from the forward kernel's prefix, with and
+    without an initial state and the final state's gradient, and bit-equal
+    when run twice; then the registered op's gradients (through
+    ``ops.ssd_state_scan``) against autograd through the plain scan."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_state_scan_bwd, ssd_state_scan_fwd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def decays(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.69 + 0.3
+
+    for B, C, H, P, N in SCAN_BWD_CASES:
+        xs, a, gp = randn(B, C, H, P, N), decays(B, C, H), randn(B, C, H, P, N)
+        for s0 in (None, randn(B, H, P, N)):
+            prefix, _ = ssd_state_scan_fwd(xs, a, s0)
+            for gf in (None, randn(B, H, P, N)):
+                has_init = s0 is not None
+                got = ssd_state_scan_bwd(gp, gf, prefix, a, has_init)
+                same = all(g is None or torch.equal(g, h) for g, h in
+                           zip(got, ssd_state_scan_bwd(gp, gf, prefix, a, has_init)))
+                want = ref.ssd_state_scan_bwd_ref(gp, gf, prefix, a, has_init)
+                leaves = [t.clone().requires_grad_() for t in (xs, a, s0) if t is not None]
+                auto = autograd_scan(torch, leaves, gp, gf)
+                torch.cuda.synchronize()
+                err, ok = scan_bwd_close(got, want, prefix)
+                err_a, ok_a = scan_bwd_close(got, auto, prefix)
+                print(f"  ssd_state_scan_bwd B={B} C={C} H={H} P={P} N={N} init={has_init} "
+                      f"g_final={gf is not None}: max_abs_err vs closed form {err:.3e}, vs "
+                      f"autograd {err_a:.3e} (tol {TOL['float32']}; d_decays also "
+                      f"{TOL['float32']} x its products' norm); run twice bit-equal {same}")
+                check(ok and ok_a and same, f"ssd_state_scan_bwd disagrees with its plain "
+                                            f"versions or repeats otherwise at {(B, C, H, P, N)}")
+    for B, C, H, P, N in SCAN_BWD_CASES[:2]:
+        xs, a, s0 = randn(B, C, H, P, N), decays(B, C, H), randn(B, H, P, N)
+        gp, gf = randn(B, C, H, P, N), randn(B, H, P, N)
+        leaves = [t.clone().requires_grad_() for t in (xs, a, s0)]
+        prefix, final = ops.ssd_state_scan(*leaves)
+        got = torch.autograd.grad([prefix, final], leaves, [gp, gf])
+        auto = autograd_scan(torch, [t.clone().requires_grad_() for t in (xs, a, s0)], gp, gf)
+        torch.cuda.synchronize()
+        err, ok = scan_bwd_close(got, auto, prefix.detach())
+        print(f"  repro_torch::ssd_state_scan gradient B={B} C={C} H={H} P={P} N={N}: "
+              f"max_abs_err vs autograd through the plain scan {err:.3e}")
+        check(ok, f"the scan op's gradients disagree with the plain scan's at {(B, C, H, P, N)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1287,19 +1406,10 @@ def train(torch, np, dev):
           f"steps from the live state {live_losses}, from the restored one {restored_losses}")
     check(live_losses == restored_losses, "the restored state trains differently")
 
-    # launches per step under each remat policy
     batch = extra[0]
-    for remat, fwd in (("none", 1), ("full", 2), ("dots", 2)):
-        fn = make_train_step(cfg, optimizer, remat=remat)
-        reset_launches()
-        state, _ = fn(state, batch)
-        torch.cuda.synchronize()
-        got = launches_now()
-        print(f"  remat {remat!r}: launches per step {got}")
-        check(got["flash_attention"] == fwd * cfg.n_layers
-              and got["flash_attention_bwd"] == cfg.n_layers,
-              f"remat {remat}: {got}, expected {fwd * cfg.n_layers} forward and "
-              f"{cfg.n_layers} backward attention launches")
+    state = check_remat_launches(torch, cfg, optimizer, state, batch,
+                                 {"flash_attention": cfg.n_layers,
+                                  "flash_attention_bwd": cfg.n_layers}, ("none", "full", "dots"))
 
     def one_step():
         nonlocal state
@@ -1508,8 +1618,9 @@ def executors(torch, np, dev):
           f"memory_estimate at {B} x {S} "
           f"{memory_estimate(cfg, ShapeConfig('custom', 'train', S, B), 1) / 2**30:.2f} GiB, "
           f"measured peak {peak_train / 2**30:.2f} GiB; serve job memory_model "
-          f"{ex.memory_model(sjob.spec, 1) / 2**30:.2f} GiB (no shape: the reference's "
-          f"train 256 x 4096), measured peak {peak_serve / 2**30:.2f} GiB")
+          f"{ex.memory_model(sjob.spec, 1) / 2**30:.2f} GiB (no shape: the serve executor's "
+          f"default {ex.SERVE_SHAPE.global_batch} slots of {ex.SERVE_SHAPE.seq_len} "
+          f"positions), measured peak {peak_serve / 2**30:.2f} GiB")
     per_prefill = serve_us["flash_attention"] / requests
     per_decode = serve_us["flash_decode"] / profiled_eng.decode_steps
     out = {
@@ -1581,21 +1692,129 @@ def product_us(torch, step, shapes, n):
     return us / n if us else None
 
 
+# the kernels that remat "full" and "dots" run again in the backward pass
+FORWARD_KERNELS = ("flash_attention", "moe_router", "ssd_state_scan")
+
+
+def launches_per_step(per_step, remat):
+    """A training step's launches of each kernel under ``remat``, from its
+    launches under "none"."""
+    again = 1 if remat == "none" else 2
+    return {name: n * (again if name in FORWARD_KERNELS else 1)
+            for name, n in per_step.items()}
+
+
+def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
+    """Phases 10 and 11: ``run_training`` of ``run`` = (batch, sequence,
+    steps, checkpoint at, peak lr, remat) with only the checkpoint at
+    ``every`` written (tens of GB of host arrays each) and the live state it
+    is taken from fingerprinted.  Gates: each kernel's launches over the run
+    (``per_step`` gives a step's under remat "none"), finite losses that
+    fall, the checkpoint restored bit-equal to that live state, and the
+    steps after it, on the run's own batches, giving the run's losses and
+    final state bit for bit.  Returns the run's launches, seconds per step
+    and peak bytes, and the replayed state, its optimizer and the first
+    replayed batch on the card."""
+    import gc
+
+    import repro_torch.train.trainer as trainer
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.data import SyntheticLM
+    from repro_torch.lake import MemoryLake
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step, train_state_shape
+
+    B, S, steps, every, lr, remat = run
+    lake, times, at_save = MemoryLake(), [], {}
+    save_checkpoint = trainer.save_checkpoint
+
+    def save_first(lake_, name, step, state, meta=None):
+        if step != every:
+            return None
+        at_save.update(state_fingerprints(torch, state))
+        return save_checkpoint(lake_, name, step, state, meta)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer, "save_checkpoint", save_first):
+        res = trainer.run_training(cfg, steps=steps, batch=B, seq=S, lake=lake,
+                                   run_name=run_name, ckpt_every=every, seed=0, lr=lr,
+                                   remat=remat, device=dev, on_step=lambda s, l: times.append(
+                                       time.perf_counter()))
+    torch.cuda.synchronize()
+    launches = launches_now()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  run_training: {res.steps_done} steps of {B} x {S} tokens, remat {remat!r}, in "
+          f"{time.perf_counter() - t0:.1f} s (init and the step-{every} checkpoint included); "
+          f"launches {launches}")
+    print(f"  losses: {[round(x, 4) for x in res.losses]}")
+    check(res.steps_done == steps and all(np.isfinite(res.losses)), "non-finite loss")
+    check(res.losses[-1] < res.losses[0], "the loss did not fall")
+    want = launches_per_step(per_step, remat)
+    for name in kernels():
+        check(launches[name] == steps * want.get(name, 0),
+              f"{name}: {launches[name]} launches over {steps} steps, expected "
+              f"{steps * want.get(name, 0)}")
+    step_s = statistics.median(b - a for a, b in zip(times[1:], times[2:]))   # steps 3-10
+    final = state_fingerprints(torch, res.state)
+    res.state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    optimizer = AdamW(lr=warmup_cosine(lr, max(steps // 20, 2), steps))   # run_training's
+    state, at = restore_checkpoint(lake, run_name, train_state_shape(cfg, optimizer),
+                                   device=dev)
+    del lake
+    gc.collect()
+    restored = state_fingerprints(torch, state)
+    moved = [k for k in at_save if restored.get(k) != at_save[k]]
+    print(f"  checkpoint at step {at}: {len(restored)} tensors restored, {len(moved)} differ "
+          f"from the live state's fingerprints at step {every}")
+    check(at == every and set(restored) == set(at_save) and not moved,
+          f"restored step {at}; tensors that differ: {moved[:5]}")
+    stream = SyntheticLM(cfg, B, S, seed=0)
+    batches = [next(stream) for _ in range(steps)][every:]
+    step_fn = make_train_step(cfg, optimizer, remat=remat)
+    replayed = []
+    for b in batches:
+        state, metrics = step_fn(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        replayed.append(float(metrics["loss"]))
+    moved = [k for k, fp in state_fingerprints(torch, state).items() if final.get(k) != fp]
+    print(f"  steps {every + 1}-{steps} from the restored state: losses {replayed}, the run's "
+          f"{res.losses[every:]}; {len(moved)} of {len(final)} final tensors differ")
+    check(replayed == res.losses[every:], "the restored state trains differently")
+    check(not moved, f"the replayed final state differs: {moved[:5]}")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+    return {"launches": launches, "step_s": step_s, "peak": peak, "state": state,
+            "optimizer": optimizer, "batch": batch}
+
+
+def check_remat_launches(torch, cfg, optimizer, state, batch, per_step, policies):
+    """One step under each remat policy in ``policies``; its launches
+    against ``launches_per_step``.  Returns the state."""
+    from repro_torch.train.step import make_train_step
+    for remat in policies:
+        reset_launches()
+        state, _ = make_train_step(cfg, optimizer, remat=remat)(state, batch)
+        torch.cuda.synchronize()
+        got, want = launches_now(), launches_per_step(per_step, remat)
+        print(f"  remat {remat!r}: launches per step {got}")
+        check(all(got[name] == want.get(name, 0) for name in got),
+              f"remat {remat}: {got}, expected {want}")
+    return state
+
+
 def train_moe(torch, np, dev):
     """Phase 10.  Returns the run's kernel launches, the profiled steps'
     device us per step of each kernel and of the router backward's two
     products."""
     import gc
 
-    import repro_torch.train.trainer as trainer
-    from repro_torch.ckpt import restore_checkpoint
     from repro_torch.configs.base import ShapeConfig, get_config
-    from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ref
-    from repro_torch.lake import MemoryLake
     from repro_torch.models import model_flops, param_count
-    from repro_torch.optim import AdamW, warmup_cosine
-    from repro_torch.train.step import make_train_step, train_state_shape
+    from repro_torch.train.step import make_train_step
 
     gc.collect()                  # phases 8 and 9's lakes, tens of GB of host memory
     arch, layers, B, S, steps, every, lr = MOE_TRAIN_RUN
@@ -1627,88 +1846,19 @@ def train_moe(torch, np, dev):
     torch.cuda.empty_cache()
 
     # the run: only step `every`'s checkpoint is written (each is ~37 GB of
-    # host arrays), and the live state it is taken from is fingerprinted
-    lake, times, at_save = MemoryLake(), [], {}
-    save_checkpoint = trainer.save_checkpoint
-
-    def save_first(lake_, run, step, state, meta=None):
-        if step != every:
-            return None
-        at_save.update(state_fingerprints(torch, state))
-        return save_checkpoint(lake_, run, step, state, meta)
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    with mock.patch.object(trainer, "save_checkpoint", save_first):
-        res = trainer.run_training(cfg, steps=steps, batch=B, seq=S, lake=lake,
-                                   run_name="phase10", ckpt_every=every, seed=0, lr=lr,
-                                   device=dev, on_step=lambda s, l: times.append(
-                                       time.perf_counter()))
-    torch.cuda.synchronize()
-    launches = launches_now()
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  run_training: {res.steps_done} steps of {B} x {S} tokens in "
-          f"{time.perf_counter() - t0:.1f} s (init and the step-{every} checkpoint included); "
-          f"launches {launches}")
-    print(f"  losses: {[round(x, 4) for x in res.losses]}")
-    check(res.steps_done == steps and all(np.isfinite(res.losses)), "non-finite loss")
-    check(res.losses[-1] < res.losses[0], "the loss did not fall")
-    for name in kernels():
-        want = steps * per_step.get(name, 0)
-        check(launches[name] == want, f"{name}: {launches[name]} launches over {steps} "
-                                      f"steps, expected {want}")
-    step_s = statistics.median(b - a for a, b in zip(times[1:], times[2:]))   # steps 3-10
+    # host arrays)
+    run = train_and_replay(torch, np, dev, cfg, "phase10", (B, S, steps, every, lr, "none"),
+                           per_step)
+    step_s, batch = run["step_s"], run["batch"]
     flops = model_flops(cfg, ShapeConfig("phase10", "train", S, B))
     print(f"  ms_per_step={1e3 * step_s:.1f} (median of steps 3-{steps}) "
           f"tokens_per_s={B * S / step_s:.1f} model_flops_per_step={flops:.4e} "
           f"mfu={flops / step_s / PEAK_FLOPS['bfloat16']:.4f} (of 989 TFLOP/s, active "
-          f"parameters) peak_memory={peak / 2**30:.2f} GiB")
-    final = state_fingerprints(torch, res.state)
-    res.state = None
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # the checkpoint restores bit-equal to the live state at `every`; the
-    # steps after it, on the run's own batches, give its losses and final
-    # state bit for bit (each of them a step run twice from the same state)
-    optimizer = AdamW(lr=warmup_cosine(lr, max(steps // 20, 2), steps))   # run_training's
-    state, at = restore_checkpoint(lake, "phase10", train_state_shape(cfg, optimizer),
-                                   device=dev)
-    del lake
-    gc.collect()
-    restored = state_fingerprints(torch, state)
-    moved = [k for k in at_save if restored.get(k) != at_save[k]]
-    print(f"  checkpoint at step {at}: {len(restored)} tensors restored, {len(moved)} differ "
-          f"from the live state's fingerprints at step {every}")
-    check(at == every and set(restored) == set(at_save) and not moved,
-          f"restored step {at}; tensors that differ: {moved[:5]}")
-    stream = SyntheticLM(cfg, B, S, seed=0)
-    batches = [next(stream) for _ in range(steps)][every:]
+          f"parameters) peak_memory={run['peak'] / 2**30:.2f} GiB")
+    optimizer = run["optimizer"]
+    state = check_remat_launches(torch, cfg, optimizer, run.pop("state"), batch, per_step,
+                                 ("none", "full", "dots"))
     step_fn = make_train_step(cfg, optimizer)
-    replayed = []
-    for b in batches:
-        state, metrics = step_fn(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
-        replayed.append(float(metrics["loss"]))
-    moved = [k for k, fp in state_fingerprints(torch, state).items() if final.get(k) != fp]
-    print(f"  steps {every + 1}-{steps} from the restored state: losses {replayed}, the run's "
-          f"{res.losses[every:]}; {len(moved)} of {len(final)} final tensors differ")
-    check(replayed == res.losses[every:], "the restored state trains differently")
-    check(not moved, f"the replayed final state differs: {moved[:5]}")
-
-    # launches per step under each remat policy
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
-    for remat, fwd in (("none", 1), ("full", 2), ("dots", 2)):
-        fn = make_train_step(cfg, optimizer, remat=remat)
-        reset_launches()
-        state, _ = fn(state, batch)
-        torch.cuda.synchronize()
-        got = launches_now()
-        print(f"  remat {remat!r}: launches per step {got}")
-        want = {name: fwd * layers if name in ("flash_attention", "moe_router") else count
-                for name, count in per_step.items()}
-        check(all(got[name] == want.get(name, 0) for name in got),
-              f"remat {remat}: {got}, expected {want}")
 
     def one_step():
         nonlocal state
@@ -1726,7 +1876,94 @@ def train_moe(torch, np, dev):
           f"moe_router_bwd {served['moe_router_bwd']:.2f}, moe_router {served['moe_router']:.2f}")
     del state
     torch.cuda.empty_cache()
-    return {"launches": launches, "served": served, "products_us": products}
+    return {"launches": run["launches"], "served": served, "products_us": products}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: train zamba2-2.7b (full depth) through run_training
+# ---------------------------------------------------------------------------
+
+def hybrid_step_bounds(cfg, B, S, per_step):
+    """Least device ms per training step of each of the hybrid's kernels at
+    (B, S) (``bound_of`` of one launch's bytes and operations, times its
+    launches a step): the scan (chunk states and decays read, prefix and
+    final written), its reverse (g_prefix and prefix read, d_states
+    written, the decays and their gradient), the shared block's attention
+    (q, k, v read, o and the log-sum-exp written) and its backward (q, k,
+    v, o, dO, lse read, dq, dk, dv written)."""
+    C = -(-S // cfg.chunk)
+    H, P, N = cfg.ssm_heads, cfg.ssm_expand * cfg.d_model // cfg.ssm_heads, cfg.ssm_state
+    scan, decays, final = B * C * H * P * N, B * C * H, B * H * P * N
+    q, kv, pairs = B * S * cfg.n_heads * cfg.hd, B * S * cfg.n_kv_heads * cfg.hd, S * (S + 1) // 2
+    lse = B * cfg.n_heads * S
+    one = {
+        "ssd_state_scan": bound_of(2.0 * scan, 4.0 * (2 * scan + decays + final), "float32"),
+        "ssd_state_scan_bwd": bound_of(4.0 * scan, 4.0 * (3 * scan + 2 * decays), "float32"),
+        "flash_attention": bound_of(4.0 * B * cfg.n_heads * cfg.hd * pairs,
+                                    2.0 * (2 * q + 2 * kv) + 4.0 * lse, "bfloat16"),
+        "flash_attention_bwd": bound_of(10.0 * B * cfg.n_heads * cfg.hd * pairs,
+                                        2.0 * (4 * q + 4 * kv) + 4.0 * lse, "bfloat16"),
+    }
+    return {name: (ms * per_step[name], by) for name, (ms, by) in one.items()}
+
+
+def train_hybrid(torch, np, dev):
+    """Phase 11.  Returns the run's kernel launches and the profiled steps'
+    device us per step of each kernel."""
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import model_flops, param_count
+    from repro_torch.train.step import make_train_step
+
+    gc.collect()                  # phase 10's lake, tens of GB of host memory
+    arch, B, S, steps, every, lr, remat = HYBRID_TRAIN_RUN
+    cfg = get_config(arch)
+    n, supers = param_count(cfg), cfg.n_layers // cfg.attn_every
+    print(f"  {n / 1e9:.3f} B params, {cfg.n_layers} Mamba2 blocks, the shared block applied "
+          f"{supers} times (head dim {cfg.hd}), d_model {cfg.d_model}, {cfg.dtype}; AdamW "
+          f"moments f32: {12 * n / 1e9:.1f} GB of weights, gradients and moments")
+    per_step = {"flash_attention": supers, "flash_attention_bwd": supers,
+                "ssd_state_scan": cfg.n_layers, "ssd_state_scan_bwd": cfg.n_layers}
+    gradient_gate(
+        torch, np, dev, cfg, S, {"attention": ref.attention_ref,
+                                 "ssd_state_scan": ref.ssd_state_scan_ref}, per_step,
+        ("mamba.0.0.ssm.a_log", "mamba.0.0.ssm.in_proj", "mamba.0.0.ssm.dt_bias",
+         f"mamba.{supers - 1}.{cfg.attn_every - 1}.ssm.out_proj", "shared.attn.wq",
+         "proj_in.0.w", "embed.table"),
+        loss_by_token=True)
+    torch.cuda.empty_cache()
+
+    # the run: only step `every`'s checkpoint is written (~31 GB of host
+    # arrays)
+    run = train_and_replay(torch, np, dev, cfg, "phase11", (B, S, steps, every, lr, remat),
+                           per_step)
+    step_s, batch, optimizer = run["step_s"], run["batch"], run["optimizer"]
+    flops = model_flops(cfg, ShapeConfig("phase11", "train", S, B))
+    print(f"  ms_per_step={1e3 * step_s:.1f} (median of steps 3-{steps}) "
+          f"tokens_per_s={B * S / step_s:.1f} model_flops_per_step={flops:.4e} "
+          f"mfu={flops / step_s / PEAK_FLOPS['bfloat16']:.4f} (of 989 TFLOP/s) "
+          f"peak_memory={run['peak'] / 2**30:.2f} GiB")
+    # remat "none" at this batch does not fit; the gate batch counted it
+    state = check_remat_launches(torch, cfg, optimizer, run.pop("state"), batch, per_step,
+                                 ("full", "dots"))
+    step_fn = make_train_step(cfg, optimizer, remat=remat)
+
+    def one_step():
+        nonlocal state
+        state, metrics = step_fn(state, batch)
+        metrics["loss"].item()
+
+    served = profile_steps(torch, one_step, f"training step ({B} x {S} tokens, remat "
+                                            f"{remat!r})", n=TRAIN_PROFILE_STEPS)
+    bounds = hybrid_step_bounds(cfg, B, S, launches_per_step(per_step, remat))
+    print("  device us per training step, beside the least the card could take: " + "; ".join(
+        f"{name} {served[name]:.1f} (bound {1e3 * ms:.1f} by {by})"
+        for name, (ms, by) in bounds.items()))
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"], "served": served}
 
 
 # ---------------------------------------------------------------------------
@@ -1748,7 +1985,8 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
                                                      flash_attention_fwd)
     from repro_torch.kernels.moe_gating import (moe_gating, moe_router, moe_router_bwd,
                                                 moe_router_fwd)
-    from repro_torch.kernels.ssd_scan import ssd_state_scan
+    from repro_torch.kernels.ssd_scan import (ssd_state_scan, ssd_state_scan_bwd,
+                                              ssd_state_scan_fwd)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1904,7 +2142,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             products_ms=time_ms(torch, products, flush),
             products_ms_read_flush=time_ms(torch, products, read_flush))
 
-    def scan_row(B, C, H, P, N, launches):
+    def scan_row(B, C, H, P, N, launches, phase):
         xs = torch.randn((B, C, H, P, N), generator=gen, device=dev)
         a = torch.rand((B, C, H), generator=gen, device=dev) * 0.69 + 0.3
 
@@ -1913,10 +2151,32 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             return max(ep, ef), okp and okf
 
         add("ssd_state_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:62",
-            f"zamba2-2.7b prefill Mamba2 block: B={B} C={C} H={H} P={P} N={N} f32", launches,
+            f"zamba2-2.7b {phase} Mamba2 block: B={B} C={C} H={H} P={P} N={N} f32", launches,
             lambda: ssd_state_scan(xs, a), lambda: ref.ssd_state_scan_ref(xs, a),
             2.0 * xs.numel(), 4.0 * (2 * xs.numel() + a.numel() + B * H * P * N),
             "float32", None, None, compare)
+
+    def scan_bwd_row(B, C, H, P, N):
+        """As the model calls it: no initial state, the final state unread."""
+        a = torch.rand((B, C, H), generator=gen, device=dev) * 0.69 + 0.3
+        prefix, _ = ssd_state_scan_fwd(torch.randn((B, C, H, P, N), generator=gen, device=dev),
+                                       a)
+        gp = torch.randn((B, C, H, P, N), generator=gen, device=dev)
+
+        def compare(out, want):
+            return scan_bwd_close(out, want, prefix)
+
+        # bytes: g_prefix and prefix read, d_states written, the decays read
+        # and d_decays written
+        add("ssd_state_scan_bwd", "ssd_scan_bwd.cu", "src/repro/kernels/ssd_scan.py:62",
+            f"zamba2-2.7b training Mamba2 block (phase 11): B={B} C={C} H={H} P={P} N={N} "
+            f"f32, no initial state, the final state unread", None,
+            lambda: ssd_state_scan_bwd(gp, None, prefix, a, False),
+            lambda: ref.ssd_state_scan_bwd_ref(gp, None, prefix, a, False),
+            4.0 * gp.numel(), 4.0 * (3 * gp.numel() + 2 * a.numel()), "float32", None, None,
+            compare, counterpart="the gradient of ssd_state_scan; the reference "
+                                 "differentiates ref.ssd_state_scan_ref with XLA; no Pallas "
+                                 "backward")
 
     # qwen3-1.7b (phase 3): one prefill layer at S = 1024; one decode layer,
     # 8 slots, the serving run's first eight prompts half-way through their
@@ -1937,7 +2197,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
                hybrid["decode"]["flash_decode"], hybrid["served"]["flash_decode"])
     d_inner = z.ssm_expand * z.d_model
     scan_row(B, -(-S // z.chunk), z.ssm_heads, d_inner // z.ssm_heads, z.ssm_state,
-             hybrid["prefill"]["ssd_state_scan"])
+             hybrid["prefill"]["ssd_state_scan"], "prefill")
     # qwen3-moe-30b-a3b (phase 6): one prefill and one decode layer at group
     # 8; the router at prefill and at decode
     arch, B, S, max_seq, steps = MOE_RUN
@@ -1960,6 +2220,12 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     # layer; its launches and device us per step are phase 10's
     B, S = MOE_TRAIN_RUN[2:4]
     router_bwd_row(B * S, m.d_model, m.n_experts, m.top_k)
+    # zamba2-2.7b training (phase 11): the state scan and its reverse of one
+    # Mamba2 block; their launches and device us per step are phase 11's
+    B, S = HYBRID_TRAIN_RUN[1:3]
+    scan_shape = (B, -(-S // z.chunk), z.ssm_heads, d_inner // z.ssm_heads, z.ssm_state)
+    scan_row(*scan_shape, None, "training (phase 11)")
+    scan_bwd_row(*scan_shape)
     for r in rows:
         print_row(r)
     return rows
@@ -1971,7 +2237,7 @@ def print_row(r):
     if "products_ms" in r:
         chain = (f", the two f32 products after it {r['products_ms']:.4f} / "
                  f"{r['products_ms_read_flush']:.4f} ms")
-    step = "training step" if r["name"].endswith("_bwd") else "decode step"
+    step = "training step" if "training" in r["shape"] else "decode step"
     print(f"  {r['name']}: {r['ms']:.4f} ms, {r['ms_read_flush']:.4f} ms under a read "
           f"flush (bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{chain}, "
@@ -2065,6 +2331,14 @@ def main() -> int:
                     r["launches"] = moe_trained["launches"]["moe_router_bwd"]
                     r["served_us_per_step"] = moe_trained["served"]["moe_router_bwd"]
                     r["products_us_per_step"] = moe_trained["products_us"]
+                    print_row(r)
+
+        with Phase(f"phase 11: train {HYBRID_TRAIN_RUN[0]} through run_training"):
+            hybrid_trained = train_hybrid(torch, np, dev)
+            for r in rows:
+                if "(phase 11)" in r["shape"]:
+                    r["launches"] = hybrid_trained["launches"][r["name"]]
+                    r["served_us_per_step"] = hybrid_trained["served"][r["name"]]
                     print_row(r)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Plant faults in the reverse SSD state scan kernel and read them with the
+checks of ``chip_smoke.py`` phase 2, on one GPU.
+
+    python3 scripts/ssd_scan_bwd_faults.py
+
+Each variant is a library compiled from a patched copy of
+``src/repro_torch/kernels/csrc/ssd_scan_bwd.cu`` (which holds its own C
+entry) under ``kernels/_build/variants/``; the checked-in source is never
+changed.  For every case of phase 2 (``SCAN_BWD_CASES``, each with and
+without an initial state and the final state's gradient) the script holds
+the variant's (d_states, d_decays, d_init) against
+``ref.ssd_state_scan_bwd_ref`` and autograd through the plain scan with
+``chip_smoke.scan_bwd_close``, prints the largest error, and counts the
+cases each fault touches and how many of them fail.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as smoke  # noqa: E402  (stdlib only at import)
+
+SOURCE = "ssd_scan_bwd.cu"
+
+# (name, [(text in SOURCE, replacement), ...])
+FAULTS = [
+    ("the walk runs forwards",
+     [("for (int c = C - 1; c >= 0; --c) {", "for (int c = 0; c < C; ++c) {")]),
+    ("a[c] dropped from the carry",
+     [("G[i] = fmaf(a, G[i], gp);", "G[i] = G[i] + gp;")]),
+    ("g_final ignored",
+     [("G[i] = g_final != nullptr && e < PN ? g_final[bh * PN + e] : 0.f;", "G[i] = 0.f;")]),
+]
+
+# name -> whether a case (B, C, H, P, N, with an initial state, with
+# g_final) reaches the fault: two chunks or more; a decay that scales
+# something (two chunks, or g_final carried into d_init); a g_final
+TOUCHES = {
+    FAULTS[0][0]: lambda B, C, H, P, N, init, gf: C >= 2,
+    FAULTS[1][0]: lambda B, C, H, P, N, init, gf: C >= 2 or (init and gf),
+    FAULTS[2][0]: lambda B, C, H, P, N, init, gf: gf,
+}
+
+
+def build_variants(variants):
+    """{name: patches} -> {name: loaded library}; all compiled at once."""
+    from repro_torch.kernels import _build
+    source = (_build._CSRC / SOURCE).read_text()
+    top = _build.BUILD_DIR / "variants"
+    shutil.rmtree(top, ignore_errors=True)
+    procs = {}
+    for i, (name, patches) in enumerate(variants.items()):
+        text = source
+        for old, new in patches:
+            if text.count(old) != 1:
+                raise SystemExit(f"variant {name!r}: {old!r} not once in {SOURCE}")
+            text = text.replace(old, new)
+        d = top / f"scan{i}"
+        d.mkdir(parents=True)
+        (d / SOURCE).write_text(text)
+        so = d / "libscanbwd.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build._FLAGS, "-shared", str(d / SOURCE), "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on variant {name!r}:\n{out}")
+        lib = ctypes.CDLL(str(so))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_scan_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        lib.ssd_scan_bwd.restype = i32
+        libs[name] = lib
+    return libs
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("ssd_scan_bwd_faults: needs a CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as scan
+    dev = torch.device("cuda", 0)
+    libs = build_variants({"sound": [], **dict(FAULTS)})
+    library = scan.library
+    for name, lib in libs.items():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        worst, failed, touched, missed = 0.0, 0, 0, []
+        cases = 0
+        for B, C, H, P, N in smoke.SCAN_BWD_CASES:
+            xs = torch.randn((B, C, H, P, N), generator=gen, device=dev)
+            a = torch.rand((B, C, H), generator=gen, device=dev) * 0.69 + 0.3
+            gp = torch.randn((B, C, H, P, N), generator=gen, device=dev)
+            for s0 in (None, torch.randn((B, H, P, N), generator=gen, device=dev)):
+                prefix, _ = scan.ssd_state_scan_fwd(xs, a, s0)
+                for gf in (None, torch.randn((B, H, P, N), generator=gen, device=dev)):
+                    init = s0 is not None
+                    scan.library = lambda: lib
+                    try:
+                        got = scan.ssd_state_scan_bwd(gp, gf, prefix, a, init)
+                    finally:
+                        scan.library = library
+                    want = ref.ssd_state_scan_bwd_ref(gp, gf, prefix, a, init)
+                    leaves = [t.clone().requires_grad_() for t in (xs, a, s0) if t is not None]
+                    auto = smoke.autograd_scan(torch, leaves, gp, gf)
+                    err, ok = smoke.scan_bwd_close(got, want, prefix)
+                    err_a, ok_a = smoke.scan_bwd_close(got, auto, prefix)
+                    worst = max(worst, err, err_a)
+                    bad = not (ok and ok_a)
+                    failed += bad
+                    cases += 1
+                    case = (B, C, H, P, N, init, gf is not None)
+                    if name in TOUCHES and TOUCHES[name](*case):
+                        touched += 1
+                        if not bad:
+                            missed.append(case)
+                    print(f"  [{name}] B={B} C={C} H={H} P={P} N={N} init={init} "
+                          f"g_final={gf is not None}: max_abs_err vs closed form {err:.3e}, "
+                          f"vs autograd {err_a:.3e}{' FAILS' if bad else ''}")
+        print(f"[{name}]: largest max_abs_err {worst:.3e}; {failed} of {cases} cases fail "
+              f"phase 2's check")
+        if name in TOUCHES:
+            print(f"[{name}] fails {touched - len(missed)} of the {touched} cases it touches; "
+                  f"passes {missed}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,7 +23,8 @@ __all__ = ["build", "library"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
-            "decode_attention.cu", "moe_gating.cu", "moe_router_bwd.cu", "ssd_scan.cu")
+            "decode_attention.cu", "moe_gating.cu", "moe_router_bwd.cu", "ssd_scan.cu",
+            "ssd_scan_bwd.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -104,5 +105,7 @@ def library() -> ctypes.CDLL:
         lib.moe_router_bwd.restype = i32
         lib.ssd_scan_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
         lib.ssd_scan_fwd.restype = i32
+        lib.ssd_scan_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        lib.ssd_scan_bwd.restype = i32
         _lib = lib
     return _lib

@@ -3,11 +3,11 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the plain PyTorch version, differentiated by autograd.
 There is no switch that sends a CUDA tensor to the plain version.
-``attention`` and ``moe_router`` carry gradients on the card, each through
-its registered op and its backward kernel (``flash_attention_bwd``,
-``moe_router_bwd``); ``decode_attention``, ``moe_gating`` and
-``ssd_state_scan`` have no backward yet and raise where autograd would need
-one.
+``attention``, ``moe_router`` and ``ssd_state_scan`` carry gradients on the
+card, each through its registered op and its backward kernel
+(``flash_attention_bwd``, ``moe_router_bwd``, ``ssd_state_scan_bwd``);
+``decode_attention`` and ``moe_gating`` have no backward and raise where
+autograd would need one.
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 __all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref",
-           "decode_attention_ref", "ssd_state_scan_ref", "moe_gating_ref", "moe_router_ref",
-           "moe_router_bwd_ref"]
+           "decode_attention_ref", "ssd_state_scan_ref", "ssd_state_scan_bwd_ref",
+           "moe_gating_ref", "moe_router_ref", "moe_router_bwd_ref"]
 
 _NEG = -1e30
 
@@ -127,6 +127,30 @@ def ssd_state_scan_ref(chunk_states: torch.Tensor, chunk_decays: torch.Tensor,
         prefix.append(s)
         s = chunk_decays[:, c, :, None, None] * s + chunk_states[:, c]
     return torch.stack(prefix, dim=1), s
+
+
+def ssd_state_scan_bwd_ref(g_prefix: Optional[torch.Tensor], g_final: Optional[torch.Tensor],
+                           prefix: torch.Tensor, chunk_decays: torch.Tensor, has_init: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The closed-form gradient of ``ssd_state_scan_ref``, as the backward
+    kernel computes it, from the gradients of its outputs (either may be
+    None: nothing reads that output) and the forward's ``prefix`` (B,C,H,P,N)
+    and decays a (B,C,H).  With G the gradient of the state entering chunk
+    c+1 (``g_final``, or zeros, past the last chunk), walking c from C-1
+    down to 0: ``d_states[c] = G``; ``d_decays[c] = sum_{P,N} G * prefix[c]``;
+    then ``G = g_prefix[c] + a[c] * G``.  Returns (d_states, d_decays,
+    d_init = the last G, or None without ``has_init``)."""
+    B, C, H, P, N = prefix.shape
+    G = (torch.zeros((B, H, P, N), dtype=prefix.dtype, device=prefix.device)
+         if g_final is None else g_final.to(prefix.dtype))
+    d_states, d_decays = torch.empty_like(prefix), prefix.new_empty((B, C, H))
+    for c in range(C - 1, -1, -1):
+        d_states[:, c] = G
+        d_decays[:, c] = (G * prefix[:, c]).sum(dim=(-1, -2))
+        G = chunk_decays[:, c, :, None, None] * G
+        if g_prefix is not None:
+            G = G + g_prefix[:, c]
+    return d_states, d_decays, G if has_init else None
 
 
 def moe_gating_ref(logits: torch.Tensor, k: int

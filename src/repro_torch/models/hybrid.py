@@ -9,12 +9,15 @@ block of super-block s (the reference stacks them ``(n_super, attn_every,
 ...)``), ``proj_in[s]`` / ``proj_out[s]`` the adapters of application s.
 Attention runs through ``ops.attention`` (prefill) and
 ``ops.decode_attention`` (decode, one scalar cache index), the SSD state
-scan through ``ops.ssd_state_scan``.
+scan through ``ops.ssd_state_scan``.  ``loss_fn`` trains through
+``hidden``, each super-block under the reference's remat policies;
+``apply`` and the serve steps run without autograd.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,7 +30,7 @@ from . import mamba2 as M
 from . import transformer as T
 
 __all__ = ["Hybrid", "Model", "n_super", "init", "init_cache", "hidden",
-           "apply", "prefill", "decode_step"]
+           "apply", "loss_fn", "prefill", "decode_step"]
 
 Cache = T.Cache
 
@@ -77,19 +80,38 @@ def _shared_attn(cfg: ArchConfig, params: Hybrid, s: int, x: torch.Tensor,
     return x + T.block_fwd(cfg, params.shared, h) @ params.proj_out[s].w
 
 
-@torch.no_grad()
-def hidden(cfg: ArchConfig, params: Hybrid, tokens: torch.Tensor) -> torch.Tensor:
+def _super_block(cfg: ArchConfig, params: Hybrid, s: int, x: torch.Tensor,
+                 x0: torch.Tensor) -> torch.Tensor:
+    """Super-block ``s``: its ``attn_every`` Mamba2 blocks, then the shared
+    block's application ``s``."""
+    for blk in params.mamba[s]:
+        x = M.ssm_block_apply(cfg, blk, x)
+    return _shared_attn(cfg, params, s, x, x0)
+
+
+def hidden(cfg: ArchConfig, params: Hybrid, tokens: torch.Tensor, *,
+           remat: str = "none") -> torch.Tensor:
+    """Embedding and every super-block: tokens (B, S) -> hidden (B, S, D).
+    Each super-block runs under the remat policy, as the reference's scan
+    body does; under autograd unless the caller turns it off."""
     x0 = L.embed_lookup(params.embed, tokens)
+    body = T._remat_wrap(functools.partial(_super_block, cfg, params), remat)
     x = x0
-    for s, group in enumerate(params.mamba):
-        for blk in group:
-            x = M.ssm_block_apply(cfg, blk, x)
-        x = _shared_attn(cfg, params, s, x, x0)
+    for s in range(n_super(cfg)):
+        x = body(s, x, x0)
     return x
 
 
+@torch.no_grad()
 def apply(cfg: ArchConfig, params: Hybrid, tokens: torch.Tensor) -> torch.Tensor:
     return T.logits_of(cfg, params, hidden(cfg, params, tokens))
+
+
+def loss_fn(cfg: ArchConfig, params: Hybrid, batch: Dict[str, torch.Tensor], *,
+            remat: str = "none") -> torch.Tensor:
+    """Mean next-token loss of ``batch`` ({"tokens", "labels"}, (B, S))."""
+    x = hidden(cfg, params, batch["tokens"], remat=remat)
+    return T.lm_loss(cfg, params, x, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

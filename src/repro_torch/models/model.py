@@ -4,9 +4,8 @@ init_cache}, the input specs of a cell, and its analytic FLOPs.
 The port's counterpart of ``repro/models/model.py`` for the families it has
 ported so far: the dense decoder, which also runs the ``vlm`` family (the
 early-fusion backbone, as the JAX package runs it), the MoE decoder and the
-Mamba2 hybrid.  The dense, vlm and MoE families train; the hybrid family
-serves but does not train yet (``ssd_state_scan`` has no backward).  The
-ssm and encdec families raise until their slices land.
+Mamba2 hybrid, all of which serve and train.  The ssm and encdec families
+raise until their slices land.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ __all__ = ["ModelBundle", "PORTED_FAMILIES", "TRAINED_FAMILIES", "bundle_for",
            "model_flops"]
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
-TRAINED_FAMILIES = ("dense", "vlm", "moe")
+TRAINED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -56,19 +55,12 @@ def model_module(cfg: ArchConfig) -> ModuleType:
     return m
 
 
-def _loss_not_ported(cfg: ArchConfig, *args, **kwargs):
-    raise NotImplementedError(
-        f"training the {cfg.family} family is not ported yet: its kernel (ssd_state_scan) "
-        "has no backward; see ROADMAP (Queue 2)")
-
-
 def bundle_for(cfg: ArchConfig) -> ModelBundle:
     """The family's functions; a vlm config gets the dense bundle (named
     "dense", as the reference names it)."""
     m = model_module(cfg)
-    loss_fn = m.loss_fn if cfg.family in TRAINED_FAMILIES else _loss_not_ported
     family = "dense" if cfg.family == "vlm" else cfg.family
-    return ModelBundle(family, m.init, loss_fn, m.apply, m.prefill, m.decode_step,
+    return ModelBundle(family, m.init, m.loss_fn, m.apply, m.prefill, m.decode_step,
                        m.init_cache)
 
 

@@ -41,7 +41,7 @@ from ..train.trainer import run_training
 from .protocol import ExecPlan, ExecResult
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "HBM_GB_PER_CHIP", "ASSUMED_MFU",
-           "REAL_PARAM_LIMIT", "roofline_step_time", "memory_model",
+           "REAL_PARAM_LIMIT", "SERVE_SHAPE", "roofline_step_time", "memory_model",
            "make_train_executor", "make_serve_executor", "blast_executor",
            "smith_waterman"]
 
@@ -68,16 +68,29 @@ def roofline_step_time(cfg: ArchConfig, shape: ShapeConfig, chips: int) -> float
     return max(compute, memory, 1e-6)
 
 
+# the shape the serve executor runs a job at by default: 4 slots of 64
+# positions (``max_seq``, ``max_batch``)
+SERVE_SHAPE = ShapeConfig("serve", "decode", 64, 4)
+
+
 def memory_model(spec, chips: int) -> Optional[float]:
     """Matchmaker admission: estimated bytes per chip for a job; ``None``
     where the reference gives none (no arch, an unknown arch or shape) and
-    for a family the port does not run."""
+    for a family the port does not run.  A job without a shape is sized as
+    the reference sizes it (its 256 x 4096 train cell), except a serve job,
+    which is sized at the shape the serve executor runs it at: the
+    reference's size would keep it off a one-card cluster."""
     arch, shp = spec.arch, spec.shape
     if arch is None:
         return None
     try:
         cfg = get_config(arch)
-        shape = get_shape(shp) if shp else ShapeConfig("d", "train", 4096, 256)
+        if shp:
+            shape = get_shape(shp)
+        elif spec.app == "serve":
+            shape = SERVE_SHAPE
+        else:
+            shape = ShapeConfig("d", "train", 4096, 256)
     except (KeyError, ModuleNotFoundError):
         return None
     if cfg.family not in PORTED_FAMILIES:
@@ -169,7 +182,8 @@ def make_train_executor(*, ckpt_every: int = 10, batch: int = 4, seq: int = 32,
 # serve
 # ---------------------------------------------------------------------------
 
-def make_serve_executor(*, max_batch: int = 4, max_seq: int = 64, device=None,
+def make_serve_executor(*, max_batch: int = SERVE_SHAPE.global_batch,
+                        max_seq: int = SERVE_SHAPE.seq_len, device=None,
                         result_type=ExecResult,
                         real_param_limit: int = REAL_PARAM_LIMIT) -> Callable:
     device = resolve_device(device)

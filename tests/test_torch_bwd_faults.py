@@ -1,10 +1,11 @@
 """PyTorch port: the planted faults of ``scripts/attention_bwd_faults.py``
-still match the kernel source they patch.
+and ``scripts/ssd_scan_bwd_faults.py`` still match the kernel sources they
+patch.
 
-The script runs on a GPU only; here its ``SOURCE`` and ``FAULTS`` are read
-as text (``ast``), so nothing of it is imported.  Each patch's target must
-occur exactly once in that source, or the script would plant nothing (or
-something else) in the kernel under test.
+The scripts run on a GPU only; here their ``SOURCE`` and ``FAULTS`` are read
+as text (``ast``), so nothing of them is imported.  Each patch's target
+must occur exactly once in that source, or the script would plant nothing
+(or something else) in the kernel under test.
 """
 
 import ast
@@ -14,13 +15,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = ROOT / "scripts" / "attention_bwd_faults.py"
+SCAN_SCRIPT = ROOT / "scripts" / "ssd_scan_bwd_faults.py"
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 
 
-def _constants():
+def _constants(script=SCRIPT):
     """{name: value} of the script's top-level literal assignments."""
     out = {}
-    for node in ast.parse(SCRIPT.read_text()).body:
+    for node in ast.parse(script.read_text()).body:
         if isinstance(node, ast.Assign) and len(node.targets) == 1:
             target = node.targets[0]
             if isinstance(target, ast.Name):
@@ -47,6 +49,30 @@ def test_faults_patch_the_bf16_backward_source():
 @pytest.mark.parametrize("name,patches", FAULTS, ids=[name for name, _ in FAULTS])
 def test_each_fault_target_occurs_once_in_the_source(name, patches):
     text = (CSRC / CONSTANTS["SOURCE"]).read_text()
+    assert patches
+    for old, new in patches:
+        assert text.count(old) == 1, f"{name}: {old!r} occurs {text.count(old)} times"
+        assert new != old
+        text = text.replace(old, new)
+
+
+SCAN_CONSTANTS = _constants(SCAN_SCRIPT)
+SCAN_FAULTS = SCAN_CONSTANTS["FAULTS"]
+
+
+def test_scan_faults_patch_the_reverse_scan_source():
+    source = SCAN_CONSTANTS["SOURCE"]
+    assert source == "ssd_scan_bwd.cu"
+    build = (ROOT / "src" / "repro_torch" / "kernels" / "_build.py").read_text()
+    assert f'"{source}"' in build and (CSRC / source).is_file()
+    assert [name for name, _ in SCAN_FAULTS] == ["the walk runs forwards",
+                                                 "a[c] dropped from the carry",
+                                                 "g_final ignored"]
+
+
+@pytest.mark.parametrize("name,patches", SCAN_FAULTS, ids=[name for name, _ in SCAN_FAULTS])
+def test_each_scan_fault_target_occurs_once_in_the_source(name, patches):
+    text = (CSRC / SCAN_CONSTANTS["SOURCE"]).read_text()
     assert patches
     for old, new in patches:
         assert text.count(old) == 1, f"{name}: {old!r} occurs {text.count(old)} times"

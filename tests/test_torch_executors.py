@@ -82,17 +82,58 @@ def test_roofline_step_time_matches_the_reference(h100_reference):
 
 
 def test_memory_model_matches_the_reference():
-    """Equal wherever the port runs the family; ``None`` where the reference
-    gives none, and for the ssm and encdec families."""
+    """Equal wherever the port runs the family, for every shaped job of any
+    app and for shapeless train jobs; ``None`` where the reference gives
+    none, and for the ssm and encdec families.  A shapeless serve job is
+    sized at the serve executor's shape instead (the test below)."""
     archs = list(registry()) + SMOKE_NAMES + ["not-a-model"]
     for arch in archs:
-        for shape in [None, *SHAPES, "custom"]:
-            fields = {"arch": arch} if shape is None else {"arch": arch, "shape": shape}
-            want = jex.memory_model(JaxJobSpec("train", fields), 4)
-            got = tex.memory_model(JobSpec("train", fields), 4)
-            ported = arch in registry() and get_config(arch).family in PORTED_FAMILIES
-            assert got == (want if ported else None), (arch, shape)
+        ported = arch in registry() and get_config(arch).family in PORTED_FAMILIES
+        for app in ("train", "serve", "blast"):
+            for shape in [None, *SHAPES, "custom"]:
+                if shape is None and app == "serve":
+                    continue
+                fields = {"arch": arch} if shape is None else {"arch": arch, "shape": shape}
+                want = jex.memory_model(JaxJobSpec(app, fields), 4)
+                got = tex.memory_model(JobSpec(app, fields), 4)
+                assert got == (want if ported else None), (app, arch, shape)
     assert tex.memory_model(JobSpec("blast", {"srr": "SRR2931415"}), 1) is None
+
+
+def test_shapeless_serve_job_is_sized_at_the_serve_executors_shape():
+    """The serve executor's own shape (``SERVE_SHAPE``: 4 slots of 64
+    positions), where the reference sizes every shapeless job as its 256 x
+    4096 train cell (137.5 GB a chip for qwen3-1.7b on one)."""
+    from repro_torch.models.model import memory_estimate
+    assert (tex.SERVE_SHAPE.kind, tex.SERVE_SHAPE.seq_len, tex.SERVE_SHAPE.global_batch) \
+        == ("decode", 64, 4)
+    for arch in ("qwen3-1.7b", "zamba2-2.7b", "qwen3-moe-30b-a3b", "lidc-demo"):
+        for chips in (1, 4):
+            got = tex.memory_model(JobSpec("serve", {"arch": arch, "chips": 1}), chips)
+            assert got == memory_estimate(get_config(arch), tex.SERVE_SHAPE, chips)
+    assert tex.memory_model(JobSpec("serve", {"arch": "xlstm-350m"}), 1) is None
+    spec = {"arch": "qwen3-1.7b", "chips": 1}
+    assert jex.memory_model(JaxJobSpec("serve", spec), 1) > tex.HBM_GB_PER_CHIP * 1e9
+    assert tex.memory_model(JobSpec("serve", spec), 1) < tex.HBM_GB_PER_CHIP * 1e9
+
+
+def test_one_card_cluster_admits_a_shapeless_serve_job():
+    """A reference overlay with one port cluster of one H100: a serve job
+    with no shape is admitted and completes there (simulated: qwen3-1.7b is
+    above the real-compute limit); a shapeless train job of the same arch is
+    still sized as the reference sizes it, and placed nowhere."""
+    system = LidcSystem()
+    system.add_cluster("h100", chips=1, hbm_gb_per_chip=tex.HBM_GB_PER_CHIP,
+                       memory_model=tex.memory_model,
+                       endpoints=standard_endpoints(["qwen3-1.7b"], device="cpu",
+                                                    plan_type=JaxExecPlan,
+                                                    result_type=JaxExecResult))
+    handle = system.client.run_job({"app": "serve", "arch": "qwen3-1.7b", "chips": 1})
+    assert handle is not None and handle.state == "Completed"
+    assert handle.result["cluster"] == "h100" and handle.result["arch"] == "qwen3-1.7b"
+    assert handle.result["tokens_out"] == 32 and handle.result["real_compute"] is False
+    assert system.client.submit({"app": "train", "arch": "qwen3-1.7b", "chips": 1,
+                                 "steps": 1}) is None
 
 
 def test_resolve_arch_matches_the_reference():
@@ -182,17 +223,18 @@ def test_executors_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_endpoints_list_only_what_the_port_runs():
-    """train: the archs whose resolved family the port trains (dense, vlm,
-    moe); serve: every ported family; an app left with no arch gets no
-    endpoint (an endpoint with no archs would take any)."""
+    """train and serve: the archs whose resolved family the port runs
+    (dense, vlm, moe, hybrid); an app left with no arch gets no endpoint (an
+    endpoint with no archs would take any)."""
     names = list(registry()) + SMOKE_NAMES + ["not-a-model"]
     train, serve, blast = standard_endpoints(names, device="cpu")
     assert (train.app, serve.app, blast.app) == ("train", "serve", "blast")
     fam = {n: jex._resolve_arch(n).family for n in names if n != "not-a-model"}
-    assert train.archs == tuple(n for n in fam if fam[n] in ("dense", "vlm", "moe"))
+    assert train.archs == tuple(n for n in fam if fam[n] in ("dense", "vlm", "moe", "hybrid"))
     assert serve.archs == tuple(n for n in fam if fam[n] in ("dense", "vlm", "moe", "hybrid"))
-    assert {"qwen3-1.7b-smoke", "qwen3-moe-30b-a3b", "qwen3-1.7b"} <= set(train.archs)
-    assert "zamba2-2.7b" not in train.archs
+    assert {"qwen3-1.7b-smoke", "qwen3-moe-30b-a3b", "qwen3-1.7b", "zamba2-2.7b",
+            "zamba2-2.7b-smoke"} <= set(train.archs)
+    assert "xlstm-350m" not in train.archs
     assert serve.families == ("dense", "vlm")
     assert [e.app for e in standard_endpoints(["xlstm-350m"], device="cpu")] == ["blast"]
 
@@ -202,7 +244,7 @@ def test_endpoints_list_only_what_the_port_runs():
 # ---------------------------------------------------------------------------
 
 FLEET_ARCHS = ["lidc-demo", "lidc-demo-smoke", "chameleon-smoke", "xlstm-350m-smoke",
-               "qwen3-1.7b-smoke"]
+               "qwen3-1.7b-smoke", "zamba2-smoke"]
 POD = {"jax": "jax-pod", "torch": "h100-pod"}
 
 

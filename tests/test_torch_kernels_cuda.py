@@ -6,7 +6,8 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 
 Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 3e-2 in bf16;
 decode outputs and attention and router gradients are also held row by row
-to a share of each row's size, as in chip_smoke.py.  ``moe_router`` sums
+to a share of each row's size, and the scan's decay gradients (sums of P*N
+products) to a share of their products' size, as in chip_smoke.py.  ``moe_router`` sums
 its logits in another order than cuBLAS, so its ids are compared
 tie-aware, as in chip_smoke.py: at every rank the kernel's expert must
 have a plain probability within ROUTER_TIE_DELTA of the plain choice's,
@@ -22,7 +23,7 @@ from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                  flash_attention_fwd)
 from repro_torch.kernels.moe_gating import moe_gating, moe_router, moe_router_bwd, moe_router_fwd
-from repro_torch.kernels.ssd_scan import ssd_state_scan
+from repro_torch.kernels.ssd_scan import ssd_state_scan, ssd_state_scan_bwd
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DECODE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # as chip_smoke.py
@@ -237,16 +238,14 @@ def test_flash_attention_bwd_is_bit_repeatable(cuda_device):
 def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda_device):
     """A kernel whose output would carry no gradient raises instead of
     training nothing upstream of it; under no_grad it runs.  (moe_router
-    carries one since it has a backward: its own tests below.)"""
+    and ssd_state_scan carry one since they have a backward: their own
+    tests below.)"""
     q, ck, cv = _randn(10, (2, 1, 16, 128), (2, 64, 8, 128), (2, 64, 8, 128),
                        dtype="bfloat16", device=cuda_device)
     logits = torch.randn((4, 128), device=cuda_device)
-    xs = torch.randn((1, 3, 4, 16, 16), device=cuda_device)
-    decays = torch.rand((1, 3, 4), device=cuda_device)
     calls = {
         "flash_decode": lambda g: flash_decode(g(q), ck, cv, 8),
         "moe_gating": lambda g: moe_gating(g(logits), 8),
-        "ssd_state_scan": lambda g: ssd_state_scan(g(xs), decays),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name} has no backward yet; see ROADMAP"):
@@ -574,6 +573,105 @@ def test_ssd_state_scan_kernel_matches_plain(cuda_device, shape, with_init):
     _assert_close(final, want_final, "float32")
 
 
+def _scan_bwd_inputs(shape, with_init, with_g_final, device, seed):
+    B, C, H, P, N = shape
+    rng = np.random.default_rng(seed)
+
+    def t(*dims, lo=None):
+        x = rng.uniform(lo, 0.99, dims) if lo is not None else rng.standard_normal(dims)
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    xs, a = t(B, C, H, P, N), t(B, C, H, lo=0.3)
+    s0 = t(B, H, P, N) if with_init else None
+    g_prefix, g_final = t(B, C, H, P, N), (t(B, H, P, N) if with_g_final else None)
+    return xs, a, s0, g_prefix, g_final
+
+
+def _autograd_scan(leaves, g_prefix, g_final):
+    """Autograd's gradients through the plain scan; zeros where no path
+    leads to a leaf (one chunk, no initial state: a constant prefix)."""
+    outs = ref.ssd_state_scan_ref(*leaves)
+    dot = sum((o * g).sum() for o, g in zip(outs, (g_prefix, g_final)) if g is not None)
+    grads = (torch.autograd.grad(dot, leaves, allow_unused=True) if dot.requires_grad
+             else [None] * len(leaves))
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+
+
+def _assert_scan_bwd_close(got, want, prefix):
+    """d_states and d_init elementwise; each d_decays[b, c, h], a sum of P*N
+    products G * prefix[c] taken in another order, also within TOL of the
+    products' Euclidean norm (as chip_smoke.py holds it)."""
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        assert (g is None) == (w is None)
+        if g is not None:
+            _assert_close(g, w, "float32")
+    tol = TOL["float32"]
+    scale = (want[0] * prefix).flatten(3).norm(dim=-1)
+    err = (got[1] - want[1]).abs()
+    assert bool((err <= tol + tol * want[1].abs() + tol * scale).all()), float(err.max())
+
+
+SCAN_BWD_SHAPES = [
+    (4, 4, 64, 80, 64),     # a zamba2-2.7b block at 4 x 1024 training tokens
+    (2, 5, 4, 16, 16),
+    (1, 1, 2, 8, 8),        # one chunk
+    (3, 3, 5, 7, 9),        # P * N = 63, far from the block's tile
+    (1, 6, 2, 80, 65),      # P * N = 5200: a third pass over a (b, h) pair
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES)
+@pytest.mark.parametrize("with_init,with_g_final", [(False, False), (True, True),
+                                                    (False, True), (True, False)])
+def test_ssd_state_scan_bwd_kernel_matches_plain(cuda_device, shape, with_init, with_g_final):
+    xs, a, s0, gp, gf = _scan_bwd_inputs(shape, with_init, with_g_final, cuda_device, 3)
+    prefix, _ = ssd_state_scan(xs, a, s0)
+    before = ssd_state_scan_bwd.launches
+    got = ssd_state_scan_bwd(gp, gf, prefix, a, with_init)
+    assert ssd_state_scan_bwd.launches == before + 1
+    _assert_scan_bwd_close(got, ref.ssd_state_scan_bwd_ref(gp, gf, prefix, a, with_init),
+                           prefix)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES[:3])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_state_scan_gradient_matches_autograd(cuda_device, shape, with_init):
+    """Through ``ops.ssd_state_scan`` on inputs that require grad: one
+    forward launch, then one backward launch for both outputs' gradients,
+    against autograd through the plain scan; under no_grad no op."""
+    xs, a, s0, gp, gf = _scan_bwd_inputs(shape, with_init, True, cuda_device, 4)
+    leaves = [t.clone().requires_grad_() for t in (xs, a, s0) if t is not None]
+    fwd, bwd = ssd_state_scan.launches, ssd_state_scan_bwd.launches
+    prefix, final = ops.ssd_state_scan(*leaves)
+    got = torch.autograd.grad([prefix, final], leaves, [gp, gf])
+    assert (ssd_state_scan.launches, ssd_state_scan_bwd.launches) == (fwd + 1, bwd + 1)
+    want = _autograd_scan([t.clone().requires_grad_() for t in (xs, a, s0) if t is not None],
+                          gp, gf)
+    _assert_scan_bwd_close((got[0], got[1], got[2] if with_init else None),
+                           (want[0], want[1], want[2] if with_init else None),
+                           prefix.detach())
+    # an unread final: its gradient is None, and the kernel takes no g_final
+    prefix, _ = ops.ssd_state_scan(*leaves)
+    got = torch.autograd.grad(prefix, leaves[:2], gp)
+    want = ref.ssd_state_scan_bwd_ref(gp, None, prefix.detach(), a, False)
+    _assert_scan_bwd_close((got[0], got[1], None), want, prefix.detach())
+    with torch.no_grad():
+        fwd, bwd = ssd_state_scan.launches, ssd_state_scan_bwd.launches
+        assert ops.ssd_state_scan(*leaves)[0].grad_fn is None
+        assert (ssd_state_scan.launches, ssd_state_scan_bwd.launches) == (fwd + 1, bwd)
+
+
+@pytest.mark.cuda
+def test_ssd_state_scan_bwd_is_bit_repeatable(cuda_device):
+    xs, a, s0, gp, gf = _scan_bwd_inputs((4, 4, 64, 80, 64), True, True, cuda_device, 5)
+    prefix, _ = ssd_state_scan(xs, a, s0)
+    first = ssd_state_scan_bwd(gp, gf, prefix, a, True)
+    for g, h in zip(first, ssd_state_scan_bwd(gp, gf, prefix, a, True)):
+        assert torch.equal(g, h)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     q, k, v = _randn(2, (1, 8, 4, 96), (1, 8, 2, 96), (1, 8, 2, 96), dtype="bfloat16",
@@ -623,3 +721,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         ssd_state_scan(xs.transpose(3, 4), a)
     with pytest.raises(ValueError, match="init_state"):
         ssd_state_scan(xs, a, torch.zeros((1, 2, 8, 4), device=cuda_device))
+    with pytest.raises(ValueError, match="g_prefix"):
+        ssd_state_scan_bwd(xs.transpose(3, 4), None, xs, a, False)
+    with pytest.raises(ValueError, match="g_final"):
+        ssd_state_scan_bwd(xs, torch.zeros((1, 2, 8, 4), device=cuda_device), xs, a, False)
+    with pytest.raises(ValueError, match="chunk_decays"):
+        ssd_state_scan_bwd(xs, None, xs, a[:, :2].contiguous(), False)
+    with pytest.raises(ValueError, match="prefix must be a CUDA"):
+        ssd_state_scan_bwd(xs.cpu(), None, xs.cpu(), a.cpu(), False)

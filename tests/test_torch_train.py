@@ -240,13 +240,16 @@ def test_tied_embedding_takes_its_gradient_from_both_uses():
 
 
 def test_moe_and_hybrid_training_is_not_ported_yet():
-    """The MoE family trains since its router has a backward
-    (tests/test_torch_moe_train.py); the hybrid's scan has none yet."""
-    cfg = smoke_of("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="not ported.*ssd_state_scan"):
-        bundle_for(cfg).loss_fn(cfg, None, {})
-    cfg = smoke_of("qwen3-moe-30b-a3b")
-    assert bundle_for(cfg).loss_fn is model_module(cfg).loss_fn
+    """Every family the port trains (the MoE family since its router has a
+    backward, tests/test_torch_moe_train.py; the hybrid since its scan has
+    one, tests/test_torch_hybrid_train.py) trains through its own module's
+    ``loss_fn``; the name is kept from when the two did not train."""
+    from repro_torch.models.model import TRAINED_FAMILIES
+    assert set(TRAINED_FAMILIES) == {"dense", "vlm", "moe", "hybrid"}
+    for arch in ("lidc-demo", "chameleon-34b", "qwen3-moe-30b-a3b", "zamba2-2.7b"):
+        cfg = smoke_of(arch)
+        assert cfg.family in TRAINED_FAMILIES
+        assert bundle_for(cfg).loss_fn is model_module(cfg).loss_fn, arch
 
 
 # ---------------------------------------------------------------------------
