@@ -22,8 +22,9 @@
    and with repeated probabilities, against its closed form, and the
    registered router op's dx and drouter against autograd through the
    plain router with the kernel's routing); the reverse state scan at phase
-   11's block, a ragged P*N, one chunk and three passes over a (b, h) pair,
-   with and without an initial state and the final state's gradient,
+   11's block, a P*N off the 16-byte path, one chunk and a (b, h) pair
+   split over eight blocks, with and without an initial state and the
+   final state's gradient,
    against its closed form and autograd through the plain scan, bit-equal
    when run twice, and the registered scan op's gradients against
    autograd);
@@ -50,7 +51,8 @@
    bound, its plain version and autograd through PyTorch's SDPA; the
    router backward at phase 10's shape beside its bound, its plain version
    and the two f32 products that follow it; and the state scan and its
-   reverse at phase 11's Mamba2 block;
+   reverse at phase 11's Mamba2 block; every kernel also beside the time of
+   a one-element PyTorch op, the floor of any launch;
 8. trains qwen3-1.7b at full width and depth (1.72 B params, bf16, f32
    AdamW moments) through ``run_training``: 10 steps of 4 x 1024 synthetic
    tokens, checkpoints every 5 steps into an in-memory lake.  Gates: the
@@ -329,7 +331,8 @@ def bound_of(flops: float, nbytes: float, dtype: str):
 
 def ptxas_summary(log: str):
     """One line per compiled kernel from nvcc's ``--ptxas-options=-v``
-    output: its name, registers and spill bytes; warnings as they are."""
+    output: its name, registers, spill bytes and static shared memory;
+    warnings as they are."""
     name, spills = None, "spills not reported"
     for line in log.splitlines():
         if "warning" in line:
@@ -339,7 +342,9 @@ def ptxas_summary(log: str):
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
-            yield f"{demangle(name)}: {m.group(1)} registers, {spills}"
+            smem = re.search(r"(\d+) bytes smem", line)
+            yield (f"{demangle(name)}: {m.group(1)} registers, {spills}"
+                   f"{f', {smem.group(1)} bytes static smem' if smem else ''}")
             name = None
 
 
@@ -465,8 +470,8 @@ SCAN_BWD_CASES = [  # (B, C, H, P, N)
     (4, 4, 64, 80, 64),     # phase 11's Mamba2 block: zamba2-2.7b, 4 x 1024 tokens
     (2, 5, 4, 16, 16),
     (1, 1, 2, 8, 8),        # one chunk
-    (3, 3, 5, 7, 9),        # P*N = 63, ragged against the kernel's passes of 2560
-    (1, 6, 2, 80, 65),      # P*N = 5200: three passes over a (b, h) pair
+    (3, 3, 5, 7, 9),        # P*N = 63: the kernel's 4-byte path
+    (1, 6, 2, 80, 65),      # P*N = 5200: a cluster of eight blocks, the last run ragged
 ]
 
 
@@ -2005,6 +2010,12 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             print(f"  library call unavailable: {exc}")
             return None
 
+    one = torch.zeros(1, device=dev)
+    floor = (time_ms(torch, lambda: one.add_(1), flush),
+             time_ms(torch, lambda: one.add_(1), read_flush))
+    print(f"  launch floor: a one-element PyTorch op (add_) takes {floor[0]:.5f} / "
+          f"{floor[1]:.5f} ms with L2 flushed by writing / by reading")
+
     def add(name, source, replaces, shape, launches, kernel, plain, flops, nbytes, dtype,
             library, tol, compare=None, served=None, **extra):
         out, want = kernel(), plain()
@@ -2022,7 +2033,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             "ms_read_flush": time_ms(torch, kernel, read_flush),
             "plain_ms": time_ms(torch, plain, flush), "bound_ms": bound, "bound_by": by,
             "library_ms": None if library is None else library_ms(library),
-            "served_us_per_step": served, **extra,
+            "served_us_per_step": served, "launch_floor_ms": floor[0], **extra,
         })
 
     def attention_row(model, B, S, H, K, hd, launches):

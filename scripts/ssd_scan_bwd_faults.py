@@ -7,8 +7,9 @@ checks of ``chip_smoke.py`` phase 2, on one GPU.
 Each variant is a library compiled from a patched copy of
 ``src/repro_torch/kernels/csrc/ssd_scan_bwd.cu`` (which holds its own C
 entry) under ``kernels/_build/variants/``; the checked-in source is never
-changed.  For every case of phase 2 (``SCAN_BWD_CASES``, each with and
-without an initial state and the final state's gradient) the script holds
+changed.  For every case of phase 2 (``SCAN_BWD_CASES``) and three more
+that reach the kernel's other paths (``EXTRA_CASES``), each with and
+without an initial state and the final state's gradient, the script holds
 the variant's (d_states, d_decays, d_init) against
 ``ref.ssd_state_scan_bwd_ref`` and autograd through the plain scan with
 ``chip_smoke.scan_bwd_close``, prints the largest error, and counts the
@@ -34,20 +35,50 @@ SOURCE = "ssd_scan_bwd.cu"
 # (name, [(text in SOURCE, replacement), ...])
 FAULTS = [
     ("the walk runs forwards",
-     [("for (int c = C - 1; c >= 0; --c) {", "for (int c = 0; c < C; ++c) {")]),
+     [("int chunk_of(int n, int C) { return C - 1 - n % C; }",
+       "int chunk_of(int n, int C) { return n % C; }")]),
     ("a[c] dropped from the carry",
-     [("G[i] = fmaf(a, G[i], gp);", "G[i] = G[i] + gp;")]),
+     [("float carry(float a, float G, float gp) { return fmaf(a, G, gp); }",
+       "float carry(float a, float G, float gp) { return G + gp; }")]),
     ("g_final ignored",
-     [("G[i] = g_final != nullptr && e < PN ? g_final[bh * PN + e] : 0.f;", "G[i] = 0.f;")]),
+     [("const bool has_gf = g_final != nullptr;", "const bool has_gf = false;")]),
+    ("cluster rank 1's partial left out of d_decays",
+     [("for (int q = 0; q < cs; ++q) s += cluster.map_shared_rank(blk + par * TILE, q)[j];",
+       "for (int q = 0; q < cs; ++q)\n"
+       "          s += q == 1 ? 0.f : cluster.map_shared_rank(blk + par * TILE, q)[j];")]),
+    ("a prefetch stage hands the walk the next step's chunk",
+     [("const long long src = at(chunk_of(n, C)) + e0;",
+       "const long long src = at(chunk_of(n + 1, C)) + e0;")]),
 ]
+
+# beyond phase 2: more chunks than one tile of chunk sums (32); P*N past
+# eight blocks' 1280 elements, so each block walks its run in two passes;
+# P*N % 4 != 0 over two blocks (the 4-byte path)
+EXTRA_CASES = [(1, 70, 2, 16, 16), (1, 3, 2, 128, 96), (1, 4, 3, 45, 31)]
+
+CAP = 1280          # elements of a (b, h) pair one block holds per pass, as the source
+
+
+def cluster_size(PN: int) -> int:
+    """The blocks the kernel splits a (b, h) pair over, as its launch picks them."""
+    cs = 1
+    while cs < 8 and -(-PN // cs) > CAP:
+        cs *= 2
+    return cs
+
 
 # name -> whether a case (B, C, H, P, N, with an initial state, with
 # g_final) reaches the fault: two chunks or more; a decay that scales
-# something (two chunks, or g_final carried into d_init); a g_final
+# something (two chunks, or g_final carried into d_init); a g_final; a
+# second cluster rank and a d_decays that is not zero (a prefix that is not
+# zero: two chunks, or an initial state); the TMA path (P*N % 4 == 0) and
+# two chunks
 TOUCHES = {
     FAULTS[0][0]: lambda B, C, H, P, N, init, gf: C >= 2,
     FAULTS[1][0]: lambda B, C, H, P, N, init, gf: C >= 2 or (init and gf),
     FAULTS[2][0]: lambda B, C, H, P, N, init, gf: gf,
+    FAULTS[3][0]: lambda B, C, H, P, N, init, gf: cluster_size(P * N) >= 2 and (C >= 2 or init),
+    FAULTS[4][0]: lambda B, C, H, P, N, init, gf: P * N % 4 == 0 and C >= 2,
 }
 
 
@@ -69,7 +100,8 @@ def build_variants(variants):
         (d / SOURCE).write_text(text)
         so = d / "libscanbwd.so"
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-shared", str(d / SOURCE), "-o", str(so)],
+            [_build._nvcc(), *_build._FLAGS, "-I", str(_build._CSRC), "-shared",
+             str(d / SOURCE), "-o", str(so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -99,7 +131,7 @@ def main() -> int:
         gen.manual_seed(0)
         worst, failed, touched, missed = 0.0, 0, 0, []
         cases = 0
-        for B, C, H, P, N in smoke.SCAN_BWD_CASES:
+        for B, C, H, P, N in smoke.SCAN_BWD_CASES + EXTRA_CASES:
             xs = torch.randn((B, C, H, P, N), generator=gen, device=dev)
             a = torch.rand((B, C, H), generator=gen, device=dev) * 0.69 + 0.3
             gp = torch.randn((B, C, H, P, N), generator=gen, device=dev)

@@ -194,24 +194,6 @@ __device__ __forceinline__ void reduce_and_route(const cg::cluster_group& cluste
                 ids + static_cast<long long>(i) * k, probs + static_cast<long long>(i) * E);
 }
 
-// mbar_wait that gives up: a stage whose bytes never all arrive (a count
-// that disagrees with the copies) traps, which the launch's caller sees as a
-// CUDA error, instead of hanging the card.
-__device__ __forceinline__ void wait_stage(uint32_t bar, uint32_t parity) {
-  for (long long spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1ll << 20)) __trap();
-  }
-}
-
 // 16 bytes of x, as loaded, stored as f32: four floats or eight bf16 values
 __device__ __forceinline__ void store_f32(float* dst, uint4 a, const float*) {
   *reinterpret_cast<uint4*>(dst) = a;
@@ -382,7 +364,7 @@ moe_router_kernel(const XT* __restrict__ x, const float* __restrict__ router,
 
   for (int i = 0; i < nc; ++i) {
     const int s = i % stages;
-    wait_stage(bar0 + 8 * s, (i / stages) & 1);
+    mbar_wait_or_trap(bar0 + 8 * s, (i / stages) & 1);
     const int kv = min(KC, D - (c0 + i) * KC);   // a multiple of 8
     const float* R = rs + s * r_stage + lane;
     const float* X = xsl + warp * RPW * xld + i * KC;

@@ -15,19 +15,28 @@
 // dlogits) stay f32 matrix products in the wrapper, as the reference leaves
 // them to XLA outside any Pallas kernel.
 //
-// Layout: the forward's (moe_gating.cu, route_row): one warp per token row,
-// eight rows per block; lane l holds columns l, l+32, ... (E <= 256, up to
-// eight values a lane) and lane j < k the j-th winner (k <= 32).  Every
-// sum is a shuffle tree of fixed order over one warp and there are no
-// atomics, so two calls give the same bits.  CUDA and not Triton, though
-// the work is a per-row reduction Triton could serve: the kernel shares the
-// forward's warp layout and top-k lane convention, and keeping it beside
-// moe_gating.cu keeps one convention.
-//
 // Bound: bytes.  p and gprobs read, dlogits written (3 T E 4 bytes) and gw,
 // w, ids read (3 T k 4): 6.68 MB at phase 10's T = 4096, E = 128, k = 8,
-// 2.0 us at 3.35 TB/s; its ~7 T E operations are nothing.  Each warp reads
-// and writes whole 128-byte rows, so a simple kernel can approach it.
+// 2.0 us at 3.35 TB/s; its ~7 T E operations are nothing.
+//
+// Design: one warp per token row, eight rows per block, so T = 4096 is 512
+// blocks, one resident wave, and the time is one row's chain of latencies
+// plus the launch.  The chain is one memory round trip: every load of a row
+// (lane l takes columns l, l+32, ... of p and gprobs, and lane j < k ids_j,
+// gw_j and w_j) is issued at once, and nothing after it reads memory.
+// s_j = p[ids_j] already sits in the warp's registers and comes by shuffle
+// from the lane that holds column ids_j; ds is scattered to the winners'
+// columns by shuffles too, and every sum is a shuffle tree of fixed order
+// over one warp.  There are no atomics, so two calls give the same bits.
+// The work has no product for wgmma, and each row is read once: a TMA ring
+// would add an mbarrier round trip and a trip through shared memory to
+// bytes that go straight to registers in one wave.  16-byte loads of p and
+// gprobs were tried and bought nothing measurable (each warp's 4-byte loads
+// already cover whole 128-byte lines), so the kernel keeps the one path.
+// CUDA and not Triton, though the work is a per-row reduction Triton could
+// serve: the kernel shares the forward's warp-per-row layout and top-k lane
+// convention (moe_gating.cu), and keeping it beside the forward keeps one
+// convention.
 
 #include <cuda_runtime.h>
 
@@ -43,6 +52,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// NV values of a row per lane: value i of lane l is column l + 32 i.
 template <int NV>
 __global__ void __launch_bounds__(NT)
 moe_router_bwd_kernel(const float* __restrict__ gw, const float* __restrict__ gprobs,
@@ -52,23 +62,31 @@ moe_router_bwd_kernel(const float* __restrict__ gw, const float* __restrict__ gp
   const int lane = threadIdx.x % 32;
   const long long row = static_cast<long long>(blockIdx.x) * ROWS + threadIdx.x / 32;
   if (row >= T) return;                  // the whole warp leaves together
-  const float* p_row = probs + row * E;
+  const bool has_gp = gprobs != nullptr;
+
+  // every load of the row at once
   float p[NV], g[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int col = lane + 32 * i;
-    p[i] = col < E ? p_row[col] : 0.f;
-    g[i] = gprobs != nullptr && col < E ? gprobs[row * E + col] : 0.f;
+    p[i] = col < E ? probs[row * E + col] : 0.f;
+    g[i] = has_gp && col < E ? gprobs[row * E + col] : 0.f;
   }
-
-  // lane j < k: the j-th winner, its selected probability s_j, gw_j, w_j
-  int id = 0;
-  float gw_j = 0.f, w_j = 0.f, s_j = 0.f;
+  int id = 0;                            // lane j < k: the j-th winner, gw_j, w_j
+  float gw_j = 0.f, w_j = 0.f;
   if (lane < k) {
     id = ids[row * k + lane];
     gw_j = gw[row * k + lane];
     w_j = w[row * k + lane];
-    s_j = p_row[id];
+  }
+
+  // s_j = p[id] from the lane and value that hold column id
+  const int src = id % 32;
+  float s_j = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float v = __shfl_sync(kFull, p[i], src);
+    if (i == id / 32 && lane < k) s_j = v;
   }
   const float S = warp_sum(s_j);
   const float ds = (gw_j - warp_sum(gw_j * w_j)) / S;

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 attention kernels: mbarriers,
-// TMA tile loads, the shared-memory matrix descriptor of wgmma, and the
-// warpgroup products themselves.
+// Hopper (sm_90a) building blocks of the bf16 attention kernels, the router
+// and the reverse state scan: mbarriers, TMA tile and bulk loads, the
+// shared-memory matrix descriptor of wgmma, and the warpgroup products
+// themselves.
 //
 // Layout.  A tile of R rows and up to 64 bf16 columns is one "column block"
 // of R rows of 128 bytes; 16-byte chunk c of row r sits at chunk c ^ (r % 8)
@@ -40,6 +41,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "@!p bra WAIT;\n}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// mbar_wait that gives up: a phase that never completes (a byte count that
+// disagrees with the copies, an arrival that never comes) traps, which the
+// launch's caller sees as a CUDA error, instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1ll << 20)) __trap();
+  }
 }
 
 // TMA: copy the box at coordinates (c0, c1, c2, c3) of a 4-D tensor map to

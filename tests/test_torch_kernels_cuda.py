@@ -502,6 +502,18 @@ def test_moe_router_gradient_goes_through_the_backward_kernel(cuda_device, dtype
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k,with_gprobs", [(4096, 128, 8, False), (4096, 126, 8, True),
+                                               (33, 256, 32, True)])
+def test_moe_router_bwd_repeats_bit_equal(cuda_device, T, E, k, with_gprobs):
+    """Two calls give the same bits beyond the case below: phase 10's shape
+    without gprobs, a ragged row and the widest rows."""
+    _, _, (gw, gprobs, w, ids, probs) = _router_bwd_inputs(T, E, k, False, cuda_device, 11)
+    gp = gprobs if with_gprobs else None
+    assert torch.equal(moe_router_bwd(gw, gp, w, ids, probs),
+                       moe_router_bwd(gw, gp, w, ids, probs))
+
+
+@pytest.mark.cuda
 def test_moe_router_backward_is_bit_repeatable(cuda_device):
     _, _, inputs = _router_bwd_inputs(4096, 128, 8, False, cuda_device, 5)
     assert torch.equal(moe_router_bwd(*inputs), moe_router_bwd(*inputs))
@@ -615,8 +627,13 @@ SCAN_BWD_SHAPES = [
     (4, 4, 64, 80, 64),     # a zamba2-2.7b block at 4 x 1024 training tokens
     (2, 5, 4, 16, 16),
     (1, 1, 2, 8, 8),        # one chunk
-    (3, 3, 5, 7, 9),        # P * N = 63, far from the block's tile
-    (1, 6, 2, 80, 65),      # P * N = 5200: a third pass over a (b, h) pair
+    (3, 3, 5, 7, 9),        # P * N = 63: the 4-byte path
+    (1, 6, 2, 80, 65),      # P * N = 5200: a cluster of eight, its last run ragged
+    (1, 70, 2, 16, 16),     # 70 chunks: three tiles of chunk sums
+    (2, 3, 3, 36, 37),      # P * N = 1332, P * N / 4 odd: two blocks, the second shorter
+    (1, 5, 1, 80, 64),      # B * H = 1: one cluster
+    (1, 3, 2, 128, 96),     # P * N = 12288: eight blocks, each in two passes
+    (1, 4, 3, 45, 31),      # P * N = 1395: the 4-byte path over two blocks
 ]
 
 
@@ -670,6 +687,47 @@ def test_ssd_state_scan_bwd_is_bit_repeatable(cuda_device):
     first = ssd_state_scan_bwd(gp, gf, prefix, a, True)
     for g, h in zip(first, ssd_state_scan_bwd(gp, gf, prefix, a, True)):
         assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_init,with_g_final", [
+    ((4, 4, 64, 80, 64), False, False),     # phase 11's block as the model calls it
+    ((1, 70, 2, 16, 16), True, True),
+    ((1, 3, 2, 128, 96), True, True),
+    ((1, 4, 3, 45, 31), True, True),
+])
+def test_ssd_state_scan_bwd_repeats_bit_equal(cuda_device, shape, with_init, with_g_final):
+    """Two calls give the same bits on every path: the cluster's reduction,
+    tiles of chunk sums, passes (d_decays read back) and the 4-byte path."""
+    xs, a, s0, gp, gf = _scan_bwd_inputs(shape, with_init, with_g_final, cuda_device, 6)
+    prefix, _ = ssd_state_scan(xs, a, s0)
+    first = ssd_state_scan_bwd(gp, gf, prefix, a, with_init)
+    for g, h in zip(first, ssd_state_scan_bwd(gp, gf, prefix, a, with_init)):
+        assert (g is None and h is None) or torch.equal(g, h)
+
+
+def _offset_copy(t, device):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte boundary,
+    so the reverse scan takes its 4-byte path whatever the shape."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 8, 80, 64), (1, 3, 2, 128, 96)])
+def test_ssd_state_scan_bwd_takes_unaligned_inputs(cuda_device, shape):
+    """P * N % 4 == 0 but every input 4 bytes off a 16-byte boundary: the
+    4-byte path, against the closed form and the TMA path's result."""
+    xs, a, s0, gp, gf = _scan_bwd_inputs(shape, True, True, cuda_device, 7)
+    prefix, _ = ssd_state_scan(xs, a, s0)
+    want = ref.ssd_state_scan_bwd_ref(gp, gf, prefix, a, True)
+    aligned = ssd_state_scan_bwd(gp, gf, prefix, a, True)
+    got = ssd_state_scan_bwd(*(_offset_copy(t, cuda_device) for t in (gp, gf, prefix)), a, True)
+    _assert_scan_bwd_close(got, want, prefix)
+    _assert_scan_bwd_close(aligned, want, prefix)
 
 
 @pytest.mark.cuda
