@@ -7,9 +7,10 @@
    each kernel's registers and spill bytes;
 2. holds each kernel against its plain PyTorch version on the card
    (attention in bf16 and f32 at head dims 64, 80 and 128 with ragged
-   lengths, query counts around the 64-row tile and strided views; decode
-   at GQA groups 1-8, lengths at tile and span edges, one long slot and
-   more (slot, KV head) pairs than SMs; the MoE router on logits with
+   lengths, query counts around the 64-row tile and strided views, and at
+   seamless's group-1 shapes, causal and not, forward and backward; decode
+   at GQA groups 1-8, lengths at tile and span edges, one long slot, more
+   (slot, KV head) pairs than SMs and 0-dim lengths; the MoE router on logits with
    ties, ids compared exactly; the fused router (product, softmax, top-k)
    at the qwen3-moe shapes, ids compared up to near ties and exactly where
    router columns repeat; the SSD state scan with and without an initial
@@ -51,8 +52,11 @@
    bound, its plain version and autograd through PyTorch's SDPA; the
    router backward at phase 10's shape beside its bound, its plain version
    and the two f32 products that follow it; and the state scan and its
-   reverse at phase 11's Mamba2 block; every kernel also beside the time of
-   a one-element PyTorch op, the floor of any launch;
+   reverse at phase 11's Mamba2 block; seamless's encoder layer (serving
+   and training), its training layer's backward and its cross-attention
+   decode at a 0-dim length (launches and device us from phase 13); every kernel
+   also beside the time of a one-element PyTorch op, the floor of any
+   launch;
 8. trains qwen3-1.7b at full width and depth (1.72 B params, bf16, f32
    AdamW moments) through ``run_training``: 10 steps of 4 x 1024 synthetic
    tokens, checkpoints every 5 steps into an in-memory lake.  Gates: the
@@ -103,12 +107,35 @@
    on the gate batch under remat "none"; "dots" as "full"); finite losses
    that fall; the checkpoint restored bit-equal and steps 6-10 replayed
    bit for bit.  Prints phase 10's measures and the device us per step of both
-   attention kernels and both scan kernels beside their bounds.
+   attention kernels and both scan kernels beside their bounds;
+12. serves xlstm-350m at full width and depth (24 blocks, 3 groups of 7
+   mLSTM + 1 sLSTM; 0.52 B params; no repo kernel, launches gated at 0)
+   through ``make_prefill`` / ``make_serve_step``: 4 prompts of 1024
+   tokens, 32 greedy steps, then a 100-token prompt, which is stepped token
+   by token; in f32 at one group and full width: prefill(256) and 64 decode
+   steps against prefill(320) (1e-3 of the largest logit), the mLSTM's
+   parallel, chunkwise and recurrent forms against each other (atol 3e-4,
+   rtol 3e-3), and the logits, loss and every gradient on the card against
+   the port's CPU path (1e-4 of each tensor's largest value); then trains
+   it through ``run_training``: 4 x 1024 tokens, 10 steps, warmup-cosine
+   to 3e-4, remat "none", with phase 10's repeat, loss and resume gates;
+13. serves seamless-m4t-large-v2 at full width and depth (24 + 24 layers,
+   2.03 B params): 4 requests of 1024 bf16 frames and one BOS each,
+   ``max_seq`` 64, 32 greedy steps (72 ``flash_attention`` launches a
+   prefill, 48 ``flash_decode`` launches a step), then a teacher-forced
+   bound as phase 4's over 1024 frames; trains it through ``run_training``
+   on ``SyntheticLM``'s frames cast to bf16 on the card (the model refuses
+   frames of another dtype, as the reference does): 4 x 1024 tokens, 10
+   steps, 3e-4, with phase 8's gradient gate (the tokens' losses) and
+   phase 10's launch, repeat and resume gates, and the attention launches
+   of a step by dtype.  Phases 12 and 13 print ms and tokens a step, the
+   model-FLOPs share, peak memory, the idle share and the leading device
+   ops.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
 profiled decode steps give each kernel's device time per served step.
-Phases 8-11 do the same around their runs and profiled steps.  The last
+Phases 8-13 do the same around their runs and profiled steps.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero and
 prints no result.
@@ -190,6 +217,20 @@ MOE_TRAIN_RUN = ("qwen3-moe-30b-a3b", 4, 4, 1024, 10, 5, 3e-3)
 # falls (scripts/hybrid_lr_sweep.py, numbers in PERF.md)
 HYBRID_TRAIN_RUN = ("zamba2-2.7b", 4, 1024, 10, 5, 3e-4, "full")
 
+# phase 12: serving (arch, batch, prompt length, greedy decode steps, a short
+# prompt off the chunk, stepped token by token); the f32 gates at one group
+# (prefill length, decode steps after it; gate-batch tokens); training
+# (batch, sequence, steps, checkpoint at, peak lr, remat)
+XLSTM_SERVE = ("xlstm-350m", 4, 1024, 32, 100)
+XLSTM_F32 = (256, 64, 256)
+XLSTM_TRAIN_RUN = (4, 1024, 10, 5, 3e-4, "none")
+
+# phase 13: serving (arch, batch, frames, max_seq, greedy decode steps; one
+# BOS token a request); training as phase 12's, on SyntheticLM's frames in
+# the model's dtype
+SEAMLESS_SERVE = ("seamless-m4t-large-v2", 4, 1024, 64, 32)
+SEAMLESS_TRAIN_RUN = (4, 1024, 10, 5, 3e-4, "none")
+
 
 class Phase:
     """Prints a phase's title, then its seconds when it ends."""
@@ -208,6 +249,14 @@ class Phase:
 
 class SmokeFailure(Exception):
     pass
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
 
 
 def check(cond: bool, what: str) -> None:
@@ -385,6 +434,14 @@ ATTN_CASES = [  # (B, Sq, Sk, H, K, hd, causal[, "strided"])
     # q a view with padded heads, k/v a layer of a stacked (2,B,S,K,hd) tensor
     (2, 140, 140, 8, 4, 128, True, "strided"),
     (2, 140, 140, 8, 4, 80, True, "strided"),
+    # seamless (phase 13), head dim 64, group 1: an encoder layer (and the
+    # cross-attention in training, Sq = Sk = 1024), the cross-attention of a
+    # one-token prefill over 1024 frames, the decoder's causal
+    # self-attention in training and in a one-token prefill
+    (4, 1024, 1024, 16, 16, 64, False),
+    (4, 1, 1024, 16, 16, 64, False),
+    (4, 1024, 1024, 16, 16, 64, True),
+    (4, 1, 1, 16, 16, 64, True),
 ]
 
 BWD_CASES = [  # (B, Sq, Sk, H, K, hd, causal[, "strided"])
@@ -416,9 +473,13 @@ BWD_CASES = [  # (B, Sq, Sk, H, K, hd, causal[, "strided"])
     # strided q and dO at hd 80 through the tensor maps, ragged tiles
     (1, 129, 129, 8, 4, 80, True, "strided"),
     (2, 65, 130, 8, 4, 80, True, "strided"),
+    # seamless's training layers (phase 13), group 1: the encoder's and the
+    # cross-attention's (no mask), the decoder's self-attention (causal)
+    (4, 1024, 1024, 16, 16, 64, False),
+    (4, 1024, 1024, 16, 16, 64, True),
 ]
 
-DECODE_CASES = [  # (B, Smax, H, K, hd, lengths)
+DECODE_CASES = [  # (B, Smax, H, K, hd, lengths[, "0-dim": one length as a 0-dim tensor])
     (8, 2048, 16, 8, 128, [1, 7, 64, 65, 1000, 1500, 2047, 2048]),
     (3, 300, 14, 2, 64, [1, 150, 300]),
     (2, 512, 16, 8, 128, 300),            # one scalar length for the batch
@@ -438,6 +499,12 @@ DECODE_CASES = [  # (B, Smax, H, K, hd, lengths)
     (1, 8192, 16, 8, 128, [5000]),
     (4, 2048, 16, 8, 128, [1, 2048, 1, 2048]),   # length 1 beside full slots
     (64, 1024, 16, 8, 128, [1024 - 13 * i for i in range(64)]),  # one block a slot
+    # seamless (phase 13), head dim 64, group 1: the cross-attention's 0-dim
+    # encoder length, per-slot lengths, and the self-attention's 0-dim
+    # index + 1 over the 64-token cache
+    (4, 1024, 16, 16, 64, 1024, "0-dim"),
+    (4, 1024, 16, 16, 64, [1, 33, 500, 1024]),
+    (4, 64, 16, 16, 64, 33, "0-dim"),
 ]
 
 GATING_CASES = [  # (T, E, k, tied logits)
@@ -502,20 +569,21 @@ def check_kernels(torch, dev):
                   f"hd={hd} causal={causal}{' strided' if strided else ''}: "
                   f"max_abs_err={err:.3e} (tol {tol})")
             check(ok, f"flash_attention disagrees with attention_ref: {err}")
-        for B, Smax, H, K, hd, lengths in DECODE_CASES:
+        for B, Smax, H, K, hd, lengths, *form in DECODE_CASES:
             q = randn((B, 1, H, hd), dtype)
             # a layer of a stacked (L, B, Smax, K, hd) cache, read in place
             ck = randn((2, B, Smax, K, hd), dtype)[1]
             cv = randn((2, B, Smax, K, hd), dtype)[1]
             length = (torch.tensor(lengths, dtype=torch.int32, device=dev)
-                      if isinstance(lengths, list) else lengths)
+                      if isinstance(lengths, list) or form else lengths)
             out = flash_decode(q, ck, cv, length)
             want = ref.decode_attention_ref(q, ck, cv, length)
             err, ok = max_err(out, want, tol)
             rel, rel_tol = row_rel_err(out, want), DECODE_REL_TOL[dtype_name]
             torch.cuda.synchronize()
             print(f"  flash_decode {dtype_name} B={B} Smax={Smax} H={H} K={K} hd={hd} "
-                  f"lengths={lengths}: max_abs_err={err:.3e} (tol {tol}), "
+                  f"lengths={lengths}{' (0-dim)' if form else ''}: max_abs_err={err:.3e} "
+                  f"(tol {tol}), "
                   f"row_rel_err={rel:.3e} (tol {rel_tol})")
             check(ok, f"flash_decode disagrees with decode_attention_ref: {err}")
             check(rel <= rel_tol, f"flash_decode rows off decode_attention_ref: {rel}")
@@ -916,7 +984,7 @@ def prompt_fills_cache(torch, np, cfg, eng):
           f"no decode step; the next request served")
 
 
-def profile_steps(torch, step, label, spans=(), n=PROFILE_STEPS):
+def profile_steps(torch, step, label, spans=(), n=PROFILE_STEPS, host_ops=True):
     """Host time per call of ``step`` over ``n`` calls, then device
     time per call by kernel from a torch.profiler window over as many more
     (sum of kernel durations; one stream, so they do not overlap), and the
@@ -925,7 +993,9 @@ def profile_steps(torch, step, label, spans=(), n=PROFILE_STEPS):
     of each wrapper's kernels (KERNEL_SYMBOLS) and of each profiler
     range named in ``spans``: the kernels that ran inside the range's
     device-side interval (first to last kernel launched in it; one stream,
-    so no other kernel runs there)."""
+    so no other kernel runs there).  ``host_ops=False`` traces the device
+    alone (no ranges then): reading a trace of ~10^5 launches a step with
+    its host ops takes minutes."""
     import bisect
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -938,7 +1008,8 @@ def profile_steps(torch, step, label, spans=(), n=PROFILE_STEPS):
     step_ms = 1e3 * (time.perf_counter() - t0) / n
     by_name, ranges, ran = {}, {name: [] for name in spans}, []
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 step()
@@ -996,21 +1067,25 @@ def profile_steps(torch, step, label, spans=(), n=PROFILE_STEPS):
 # ---------------------------------------------------------------------------
 
 def serve_steps(torch, np, dev, cfg, params, batch, prompt_len, max_seq, steps,
-                want_prefill, want_step, routers=False):
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
-    ``steps`` greedy decode steps.  ``want_prefill`` / ``want_step`` give
-    each kernel's expected launches per prefill / per decode step.  With
-    ``routers`` the profiled step runs the router in a profiler range, once
-    through ``moe_router`` and once through ``router_chain``.  Returns the
-    launches {"prefill": ..., "decode": ...}, ms per decode step and the
-    device us per step of each kernel ("served") and of each router
-    ("router")."""
+                want_prefill, want_step, routers=False, frames=None):
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (over
+    ``frames`` (batch, F, D) for the encoder-decoder), then ``steps`` greedy
+    decode steps.  ``want_prefill`` / ``want_step`` give each kernel's
+    expected launches per prefill / per decode step.  With ``routers`` the
+    profiled step runs the router in a profiler range, once through
+    ``moe_router`` and once through ``router_chain``.  Returns the launches
+    {"prefill": ..., "decode": ...}, ms per decode step and the device us
+    per step of each kernel ("served") and of each router ("router")."""
     from repro_torch.train.step import make_prefill, make_serve_step
     prefill, serve_step = make_prefill(cfg), make_serve_step(cfg)
 
+    def inputs(tokens, fr):
+        return {"tokens": tokens} if fr is None else {"frames": fr, "tokens": tokens}
+
     # warm-up at a small size: cuBLAS handles, allocator, first launches
-    warm = torch.ones((batch, 16), dtype=torch.int32, device=dev)
-    _, cache = prefill(params, {"tokens": warm}, max_seq=32)
+    warm = torch.ones((batch, 16 if frames is None else 1), dtype=torch.int32, device=dev)
+    _, cache = prefill(params, inputs(warm, None if frames is None else frames[:, :16]),
+                       max_seq=32)
     serve_step(params, cache, warm[:, :1])
     del cache
     torch.cuda.synchronize()
@@ -1021,7 +1096,7 @@ def serve_steps(torch, np, dev, cfg, params, batch, prompt_len, max_seq, steps,
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": toks}, max_seq=max_seq)
+    logits, cache = prefill(params, inputs(toks, frames), max_seq=max_seq)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     at_prefill = launches_now()
@@ -1071,7 +1146,7 @@ def serve_steps(torch, np, dev, cfg, params, batch, prompt_len, max_seq, steps,
         served = profile_steps(torch, one_step, label)
         del cache, logits
         return {"prefill": at_prefill, "decode": at_decode, "ms_per_step": ms_step,
-                "served": served}
+                "served": served, "prefill_s": prefill_s}
     from repro_torch.kernels import ops
     windows = {}
     for name, fn in (("moe_router", ops.moe_router), ("router_chain", router_chain)):
@@ -1147,15 +1222,18 @@ def serve_moe(torch, np, dev):
 # phase 4: teacher-forced logits, kernel path vs plain path
 # ---------------------------------------------------------------------------
 
-def run_path(torch, cfg, params, prompt, feed=None):
-    """Prefill + TEACHER_STEPS decode steps through the model's bundle;
+def run_path(torch, cfg, params, prompt, feed=None, frames=None):
+    """Prefill + TEACHER_STEPS decode steps through the model's bundle (the
+    encoder-decoder's prompt over ``frames``, cast to the weights' dtype);
     greedy unless ``feed`` gives the tokens.  Returns (f32 logits (steps+1,
     V), the tokens fed)."""
     from repro_torch.models import bundle_for
     bundle = bundle_for(cfg)
     dev = params.embed.table.device
     toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
-    logits, cache = bundle.prefill(cfg, params, toks, max_seq=len(prompt) + TEACHER_STEPS)
+    inputs = toks if frames is None else {"frames": frames.to(params.embed.table.dtype),
+                                          "tokens": toks}
+    logits, cache = bundle.prefill(cfg, params, inputs, max_seq=len(prompt) + TEACHER_STEPS)
     rows, fed = [logits[0, -1].float()], []
     for i in range(TEACHER_STEPS):
         nxt = int(rows[-1].argmax()) if feed is None else feed[i]
@@ -1166,10 +1244,10 @@ def run_path(torch, cfg, params, prompt, feed=None):
     return torch.stack(rows), fed
 
 
-def teacher_forced(torch, np, cfg, params):
+def teacher_forced(torch, np, cfg, params, frames=None):
     """Kernel path (bf16) against the plain path in bf16 and in f32: every
-    ``ops`` entry patched to its plain version, the model's weights cast
-    to f32 for the last run."""
+    ``ops`` entry patched to its plain version, the model's weights (and
+    the encoder-decoder's ``frames``) cast to f32 for the last run."""
     from repro_torch.kernels import ops, ref
 
     plain_fns = {"attention": ref.attention_ref,
@@ -1178,16 +1256,16 @@ def teacher_forced(torch, np, cfg, params):
                  "ssd_state_scan": ref.ssd_state_scan_ref}
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, TEACHER_PROMPT).tolist()
     reset_launches()
-    kern, fed = run_path(torch, cfg, params, prompt)
+    kern, fed = run_path(torch, cfg, params, prompt, frames=frames)
     print(f"  kernel path launches: {launches_now()}")
     with contextlib.ExitStack() as stack:
         for name, fn in plain_fns.items():
             stack.enter_context(mock.patch.object(ops, name, fn))
         before = launches_now()
-        plain, _ = run_path(torch, cfg, params, prompt, feed=fed)
+        plain, _ = run_path(torch, cfg, params, prompt, feed=fed, frames=frames)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         params32 = copy.deepcopy(params).float()
-        plain32, _ = run_path(torch, cfg32, params32, prompt, feed=fed)
+        plain32, _ = run_path(torch, cfg32, params32, prompt, feed=fed, frames=frames)
         del params32
         check(launches_now() == before, "a kernel launched on the plain path")
     check(bool(torch.isfinite(kern).all()), "non-finite logits on the kernel path")
@@ -1214,6 +1292,15 @@ def teacher_forced(torch, np, cfg, params):
 # phase 8: train qwen3-1.7b through run_training
 # ---------------------------------------------------------------------------
 
+def in_model_dtype(torch, cfg, batch):
+    """``batch`` with its frames (the encoder-decoder's) in the config's
+    dtype: ``SyntheticLM`` makes f32 frames, and the model, as the
+    reference's, refuses frames of another dtype than its own."""
+    if "frames" not in batch:
+        return batch
+    return {**batch, "frames": batch["frames"].to(getattr(torch, cfg.dtype))}
+
+
 def loss_and_grads(torch, cfg, params, batch, remat="none"):
     from repro_torch.models import bundle_for
     loss = bundle_for(cfg).loss_fn(cfg, params, batch, remat=remat)
@@ -1228,7 +1315,8 @@ def token_losses(torch, cfg, params, batch):
     from repro_torch.models import transformer as T
     from repro_torch.models.model import model_module
     with torch.no_grad():
-        h = model_module(cfg).hidden(cfg, params, batch["tokens"])
+        h = model_module(cfg).hidden(cfg, params, batch if cfg.family == "encdec"
+                                     else batch["tokens"])
         logits = T.logits_of(cfg, params, h[0] if isinstance(h, tuple) else h).float()
         return F.cross_entropy(logits.flatten(0, 1), batch["labels"].flatten().long(),
                                reduction="none")
@@ -1251,8 +1339,9 @@ def gradient_gate(torch, np, dev, cfg, seq, plain, want, show, loss_by_token=Fal
     from repro_torch.kernels import ops, ref
     from repro_torch.models import bundle_for
     params = bundle_for(cfg).init(cfg, 0, device=dev).requires_grad_(True)
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in next(SyntheticLM(cfg, GATE_BATCH, seq, seed=7)).items()}
+    batch = in_model_dtype(torch, cfg, {
+        k: torch.from_numpy(v).to(dev)
+        for k, v in next(SyntheticLM(cfg, GATE_BATCH, seq, seed=7)).items()})
     routed = {"kernel": [], "plain": [], "plain_router": []}
 
     def recording(fn, path):
@@ -1285,10 +1374,11 @@ def gradient_gate(torch, np, dev, cfg, seq, plain, want, show, loss_by_token=Fal
         loss_p, grads_p = loss_and_grads(torch, cfg, params, batch)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         params32 = copy.deepcopy(params).float()
-        loss_32, grads_32 = loss_and_grads(torch, cfg32, params32, batch, remat="full")
+        batch32 = in_model_dtype(torch, cfg32, batch)
+        loss_32, grads_32 = loss_and_grads(torch, cfg32, params32, batch32, remat="full")
         if loss_by_token:
             tok_p = token_losses(torch, cfg, params, batch)
-            tok_32 = token_losses(torch, cfg32, params32, batch)
+            tok_32 = token_losses(torch, cfg32, params32, batch32)
         del params32
     routed["plain"] = routed["plain"][:len(routed["kernel"])]   # the bf16 pass's
     check(launches_now() == launched, "a kernel launched on the plain paths")
@@ -1727,11 +1817,11 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
     from repro_torch.data import SyntheticLM
     from repro_torch.lake import MemoryLake
     from repro_torch.optim import AdamW, warmup_cosine
-    from repro_torch.train.step import make_train_step, train_state_shape
+    from repro_torch.train.step import train_state_shape
 
     B, S, steps, every, lr, remat = run
     lake, times, at_save = MemoryLake(), [], {}
-    save_checkpoint = trainer.save_checkpoint
+    save_checkpoint, make_step = trainer.save_checkpoint, trainer.make_train_step
 
     def save_first(lake_, name, step, state, meta=None):
         if step != every:
@@ -1739,10 +1829,15 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
         at_save.update(state_fingerprints(torch, state))
         return save_checkpoint(lake_, name, step, state, meta)
 
+    def make_step_in_model_dtype(cfg_, *args, **kw):
+        step_fn = make_step(cfg_, *args, **kw)
+        return lambda state, batch: step_fn(state, in_model_dtype(torch, cfg_, batch))
+
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    with mock.patch.object(trainer, "save_checkpoint", save_first):
+    with mock.patch.object(trainer, "save_checkpoint", save_first), \
+            mock.patch.object(trainer, "make_train_step", make_step_in_model_dtype):
         res = trainer.run_training(cfg, steps=steps, batch=B, seq=S, lake=lake,
                                    run_name=run_name, ckpt_every=every, seed=0, lr=lr,
                                    remat=remat, device=dev, on_step=lambda s, l: times.append(
@@ -1780,7 +1875,7 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
           f"restored step {at}; tensors that differ: {moved[:5]}")
     stream = SyntheticLM(cfg, B, S, seed=0)
     batches = [next(stream) for _ in range(steps)][every:]
-    step_fn = make_train_step(cfg, optimizer, remat=remat)
+    step_fn = make_step_in_model_dtype(cfg, optimizer, remat=remat)
     replayed = []
     for b in batches:
         state, metrics = step_fn(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
@@ -1790,7 +1885,8 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
           f"{res.losses[every:]}; {len(moved)} of {len(final)} final tensors differ")
     check(replayed == res.losses[every:], "the restored state trains differently")
     check(not moved, f"the replayed final state differs: {moved[:5]}")
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+    batch = in_model_dtype(torch, cfg, {k: torch.from_numpy(v).to(dev)
+                                        for k, v in batches[0].items()})
     return {"launches": launches, "step_s": step_s, "peak": peak, "state": state,
             "optimizer": optimizer, "batch": batch}
 
@@ -1972,6 +2068,307 @@ def train_hybrid(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: xlstm-350m, served and trained at full width and depth
+# ---------------------------------------------------------------------------
+
+def step_measures(torch, cfg, shape, step_s, peak):
+    """ms and tokens a step, the model-FLOPs share of 989 TFLOP/s, peak
+    memory: one line."""
+    from repro_torch.models import model_flops
+    flops = model_flops(cfg, shape)
+    tokens = shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len)
+    return (f"ms_per_step={1e3 * step_s:.1f} tokens_per_s={tokens / step_s:.1f} "
+            f"model_flops_per_step={flops:.4e} mfu={flops / step_s / PEAK_FLOPS['bfloat16']:.4f} "
+            f"(of 989 TFLOP/s) peak_memory={peak / 2**30:.2f} GiB")
+
+
+def repeat_gate(torch, cfg, params, batch):
+    """The loss and every gradient of one batch, twice: bit-equal."""
+    loss_a, grads_a = loss_and_grads(torch, cfg, params, batch)
+    loss_b, grads_b = loss_and_grads(torch, cfg, params, batch)
+    same = loss_a == loss_b and all(torch.equal(a, b) for a, b in zip(grads_a, grads_b))
+    print(f"  one batch's loss and {len(grads_a)} gradients computed twice: bit-equal {same}")
+    check(same, "a repeated step's loss or gradients differ")
+
+
+def xlstm_f32_gates(torch, np, dev, cfg):
+    """At one group (slstm_every blocks) of full width in f32: prefill then
+    decode steps against a longer prefill; the mLSTM's parallel, chunkwise
+    and recurrent forms against each other; and the logits, the loss and
+    every gradient on the card against the port's CPU path on the same
+    weights and tokens (TF32 off).  The CPU path also runs on weights moved
+    by one ulp at random, which shows how far f32 rounding alone moves
+    each tensor (printed beside the gate, not gated)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import bundle_for
+    from repro_torch.models import xlstm as X
+    P, extra, gate_tokens = XLSTM_F32
+    cfg = dataclasses.replace(cfg, n_layers=cfg.slstm_every, dtype="float32")
+    params = bundle_for(cfg).init(cfg, 1, device=dev)
+    toks = torch.tensor(np.random.default_rng(5).integers(0, cfg.vocab, (1, P + extra)),
+                        dtype=torch.int32, device=dev)
+    full, _ = X.prefill(cfg, params, toks)
+    _, cache = X.prefill(cfg, params, toks[:, :P])
+    for i in range(P, P + extra):
+        logits, cache = X.decode_step(cfg, params, cache, toks[:, i:i + 1])
+    gap = float((logits - full).abs().max() / full.abs().max())
+    print(f"  f32, {cfg.n_layers} blocks: prefill({P}) + {extra} decode steps vs "
+          f"prefill({P + extra}): max |dlogit| / max |logit| = {gap:.3e} (limit 1e-3)")
+    check(gap <= 1e-3, f"decode after prefill drifts from the longer prefill: {gap}")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    blk = params.mlstm[0][0].mlstm
+    d_inner, H, hd = X.dims(cfg)
+    with torch.no_grad():
+        x = torch.randn((1, P, cfg.d_model), generator=gen, device=dev) * 0.3
+        par, chunk = X.mlstm_parallel(cfg, blk, x), X.mlstm_chunkwise(cfg, blk, x)
+        cell = {"C": torch.zeros((1, H, hd, hd), device=dev),
+                "n": torch.zeros((1, H, hd), device=dev),
+                "m": torch.full((1, H), -1e30, device=dev),
+                "conv": torch.zeros((1, cfg.conv_kernel - 1, d_inner), device=dev)}
+        outs = []
+        for t in range(P):
+            o, cell = X.mlstm_step(cfg, blk, x[:, t:t + 1], cell)
+            outs.append(o)
+        rec = torch.cat(outs, dim=1)
+    for name, got in (("chunkwise", chunk), ("recurrent", rec)):
+        err = float((got - par).abs().max())
+        ok = bool(((got - par).abs() <= 3e-4 + 3e-3 * par.abs()).all())
+        print(f"  mLSTM {name} vs parallel, one block, {P} tokens: max_abs_err={err:.3e} "
+              f"(atol 3e-4, rtol 3e-3)")
+        check(ok, f"the mLSTM's {name} form disagrees with the parallel form: {err}")
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(SyntheticLM(cfg, 1, gate_tokens, seed=7)).items()}
+    cpu_params = copy.deepcopy(params).cpu()
+    moved = copy.deepcopy(cpu_params)
+    ulp_gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for q in moved.parameters():
+            up = torch.nextafter(q, torch.full_like(q, float("inf")))
+            q.copy_(torch.where(torch.rand(q.shape, generator=ulp_gen) < 0.5, up, q))
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    rows = []
+    for p, b in ((params, batch), (cpu_params, cpu_batch), (moved, cpu_batch)):
+        p.requires_grad_(True)
+        t0 = time.perf_counter()
+        logits = X.apply(cfg, p, b["tokens"])
+        loss, grads = loss_and_grads(torch, cfg, p, b)
+        rows.append((logits.cpu(), loss, [g.cpu() for g in grads], time.perf_counter() - t0))
+
+    def errs(got, want):
+        (lg, sg, gg, _), (lw, sw, gw, _) = got, want
+        out = {"logits": float((lg - lw).abs().max() / lw.abs().max()),
+               "loss": abs(sg - sw) / abs(sw)}
+        for (name, _), a, b in zip(params.named_parameters(), gg, gw):
+            out[name] = float((a - b).abs().max() / b.abs().max())
+        return out
+
+    worst, ulp = errs(rows[0], rows[1]), errs(rows[2], rows[1])
+    top = max(worst, key=worst.get)
+    print(f"  card vs CPU, f32, 1 x {gate_tokens} tokens ({rows[0][3]:.1f} s / "
+          f"{rows[1][3]:.1f} s): logits {worst['logits']:.3e}, loss {worst['loss']:.3e}, over "
+          f"{len(rows[0][2])} gradients the largest {worst[top]:.3e} ({top}); each max |d| / "
+          f"max |cpu| (limit 1e-4)")
+    for name in sorted(worst, key=worst.get, reverse=True)[:6]:
+        print(f"    {name}: card vs CPU {worst[name]:.3e}; CPU on weights one ulp away vs "
+              f"CPU {ulp[name]:.3e}")
+    top_ulp = max(ulp, key=ulp.get)
+    print(f"  CPU on weights one ulp away vs CPU: the largest {ulp[top_ulp]:.3e} ({top_ulp})")
+    check(all(v <= 1e-4 for v in worst.values()), f"card and CPU differ: {top} {worst[top]}")
+    del params, cpu_params, moved, cache
+    torch.cuda.empty_cache()
+
+
+def serve_and_train_xlstm(torch, np, dev):
+    """Phase 12.  Returns the serving and training runs' launches (none of
+    the repo's kernels: the path has none) and device us."""
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.models import bundle_for, param_count
+    from repro_torch.models import xlstm as X
+    from repro_torch.train.step import make_prefill, make_train_step
+
+    gc.collect()                  # phase 11's lake
+    arch, B, S, steps, short = XLSTM_SERVE
+    cfg = get_config(arch)
+    n, (d_inner, H, hd) = param_count(cfg), X.dims(cfg)
+    t0 = time.perf_counter()
+    params = bundle_for(cfg).init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  on {card_line()}")
+    print(f"  {n / 1e9:.3f} B params, {cfg.n_layers} blocks ({X.n_groups(cfg)} groups of "
+          f"{cfg.slstm_every - 1} mLSTM + 1 sLSTM), d_model {cfg.d_model}, mLSTM {H} heads of "
+          f"{hd}, sLSTM heads of {cfg.d_model // cfg.n_heads}, {cfg.dtype}; init "
+          f"{time.perf_counter() - t0:.1f} s; no repo kernel on this path")
+    run = serve_steps(torch, np, dev, cfg, params, B, S, S + steps, steps, {}, {})
+    print("  prefill " + step_measures(torch, cfg, ShapeConfig("p", "prefill", S, B),
+                                        run["prefill_s"], torch.cuda.max_memory_allocated()))
+    print("  decode " + step_measures(torch, cfg, ShapeConfig("d", "decode", S + steps, B),
+                                       run["ms_per_step"] / 1e3,
+                                       torch.cuda.max_memory_allocated()))
+    toks = torch.tensor(np.random.default_rng(4).integers(0, cfg.vocab, (1, short)),
+                        dtype=torch.int32, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = make_prefill(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    print(f"  one prompt of {short} tokens (not a multiple of the chunk {cfg.chunk}: stepped "
+          f"token by token): {1e3 * (time.perf_counter() - t0):.1f} ms, launches "
+          f"{launches_now()}")
+    check(int(cache["index"]) == short and bool(torch.isfinite(logits).all())
+          and not any(launches_now().values()), "the short prompt's prefill")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    xlstm_f32_gates(torch, np, dev, cfg)
+
+    B, S = XLSTM_TRAIN_RUN[:2]
+    trained = train_and_replay(torch, np, dev, cfg, "phase12", XLSTM_TRAIN_RUN, {})
+    print("  " + step_measures(torch, cfg, ShapeConfig("t", "train", S, B), trained["step_s"],
+                               trained["peak"]))
+    state, batch = trained.pop("state"), trained["batch"]
+    repeat_gate(torch, cfg, state["params"], batch)
+    step_fn = make_train_step(cfg, trained["optimizer"], remat=XLSTM_TRAIN_RUN[-1])
+
+    def one_step():
+        nonlocal state
+        state, metrics = step_fn(state, batch)
+        metrics["loss"].item()
+
+    served = profile_steps(torch, one_step, f"training step ({B} x {S} tokens)", n=1,
+                           host_ops=False)
+    del state
+    torch.cuda.empty_cache()
+    return {"serve": run, "train": {"launches": trained["launches"], "served": served}}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: seamless-m4t-large-v2, served and trained at full width and depth
+# ---------------------------------------------------------------------------
+
+class _ByDtype:
+    """A kernel wrapper that also counts its calls by q's dtype into
+    ``counts``; its ``launches`` is the wrapped function's own count, which
+    the wrapped function increments through its module-level name."""
+
+    def __init__(self, fn, counts):
+        self.fn, self.counts = fn, counts
+
+    def __call__(self, q, *args, **kw):
+        key = str(q.dtype).removeprefix("torch.")
+        self.counts[key] = self.counts.get(key, 0) + 1
+        return self.fn(q, *args, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+@contextlib.contextmanager
+def attention_launches_by_dtype(torch):
+    """Counts each attention kernel's launches by dtype inside the block:
+    {"flash_attention": {dtype: n}, "flash_attention_bwd": {...}}."""
+    from repro_torch.kernels import flash_attention as fa
+    counts = {"flash_attention": {}, "flash_attention_bwd": {}}
+    with mock.patch.object(fa, "flash_attention_fwd",
+                           _ByDtype(fa.flash_attention_fwd, counts["flash_attention"])), \
+            mock.patch.object(fa, "flash_attention_bwd",
+                              _ByDtype(fa.flash_attention_bwd, counts["flash_attention_bwd"])):
+        yield counts
+
+
+def serve_and_train_seamless(torch, np, dev):
+    """Phase 13.  Returns the serving (prefill and decode) and training
+    runs' launches and device us of each kernel."""
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import bundle_for, param_count
+    from repro_torch.train.step import make_prefill, make_train_step
+
+    gc.collect()                  # phase 12's lake
+    arch, B, F_, max_seq, steps = SEAMLESS_SERVE
+    cfg = get_config(arch)
+    n = param_count(cfg)
+    n_attn = cfg.enc_layers + 2 * cfg.dec_layers
+    t0 = time.perf_counter()
+    params = bundle_for(cfg).init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  on {card_line()}")
+    print(f"  {n / 1e9:.3f} B params, {cfg.enc_layers} encoder + {cfg.dec_layers} decoder "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}; init {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    frames = torch.randn((B, F_, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    run = serve_steps(torch, np, dev, cfg, params, B, 1, max_seq, steps,
+                      {"flash_attention": n_attn}, {"flash_decode": 2 * cfg.dec_layers},
+                      frames=frames)
+    print(f"  prefill of {B} x {F_} bf16 frames and one BOS each: "
+          f"{B * F_ / run['prefill_s']:.1f} frames/s; " + step_measures(
+              torch, cfg, ShapeConfig("p", "prefill", F_, B), run["prefill_s"],
+              torch.cuda.max_memory_allocated()))
+    print("  decode " + step_measures(torch, cfg, ShapeConfig("d", "decode", max_seq, B),
+                                       run["ms_per_step"] / 1e3,
+                                       torch.cuda.max_memory_allocated()))
+    bos = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    prefill = make_prefill(cfg)
+    with attention_launches_by_dtype(torch) as by_dtype:
+        prefilled = profile_steps(torch, lambda: prefill(params, {"frames": frames,
+                                                                  "tokens": bos},
+                                                         max_seq=max_seq),
+                                  f"prefill ({B} x {F_} frames)", n=2)
+    print(f"  attention launches by dtype over {2 * 2} prefills: {by_dtype}")
+    print(f"  teacher-forced logits over {F_} frames, kernel path vs plain path")
+    teacher_forced(torch, np, cfg, params, frames=frames[:1])
+    del params, frames
+    torch.cuda.empty_cache()
+
+    Bt, S = SEAMLESS_TRAIN_RUN[:2]
+    per_step = {"flash_attention": n_attn, "flash_attention_bwd": n_attn}
+    print("  training on SyntheticLM's frames cast to bf16 on the card (the model, as the "
+          "reference's, refuses f32 frames in a bf16 model)")
+    gradient_gate(torch, np, dev, cfg, S, {"attention": ref.attention_ref}, per_step,
+                  ("enc_blocks.0.attn.wq", "enc_blocks.0.mlp.w_up", "dec_blocks.0.attn.wq",
+                   "dec_blocks.0.xattn.wk", f"dec_blocks.{cfg.dec_layers - 1}.xattn.wq",
+                   "embed.table", "lm_head.w"), loss_by_token=True)
+    torch.cuda.empty_cache()
+    trained = train_and_replay(torch, np, dev, cfg, "phase13", SEAMLESS_TRAIN_RUN, per_step)
+    print("  " + step_measures(torch, cfg, ShapeConfig("t", "train", S, Bt), trained["step_s"],
+                               trained["peak"]))
+    state, batch = trained.pop("state"), trained["batch"]
+    step_fn = make_train_step(cfg, trained["optimizer"], remat=SEAMLESS_TRAIN_RUN[-1])
+
+    def one_step():
+        nonlocal state
+        state, metrics = step_fn(state, batch)
+        metrics["loss"].item()
+
+    with attention_launches_by_dtype(torch) as by_dtype:
+        one_step()
+    print(f"  attention launches by dtype in one training step: {by_dtype}")
+    want = {"bfloat16": n_attn}
+    check(by_dtype == {"flash_attention": want, "flash_attention_bwd": want},
+          "expected every attention in bf16, forward and backward")
+    served = profile_steps(torch, one_step, f"training step ({Bt} x {S} tokens)",
+                           n=TRAIN_PROFILE_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    return {"prefill": {"launches": run["prefill"], "served": prefilled},
+            "decode": {"launches": run["decode"], "served": run["served"]},
+            "train": {"launches": trained["launches"], "served": served}}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the kernel table at serving shapes
 # ---------------------------------------------------------------------------
 
@@ -2036,18 +2433,24 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             "served_us_per_step": served, "launch_floor_ms": floor[0], **extra,
         })
 
-    def attention_row(model, B, S, H, K, hd, launches):
-        q, k, v = randn((B, S, H, hd)), randn((B, S, K, hd)), randn((B, S, K, hd))
+    def attention_row(model, B, S, H, K, hd, launches, what="prefill layer",
+                      dtype_name="bfloat16", causal=True, **extra):
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (randn((B, S, H, hd), dtype), randn((B, S, K, hd), dtype),
+                   randn((B, S, K, hd), dtype))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        pairs = S * (S + 1) // 2                  # causal (query, key) pairs
+        pairs = S * (S + 1) // 2 if causal else S * S     # (query, key) pairs
         add("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:94",
-            f"{model} prefill layer: B={B} S={S} H={H} K={K} hd={hd} bf16 causal", launches,
-            lambda: flash_attention(q, k, v), lambda: ref.attention_ref(q, k, v),
-            4.0 * B * H * hd * pairs, 2.0 * (2 * q.numel() + k.numel() + v.numel()),
-            "bfloat16", lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), TOL["bfloat16"])
+            f"{model} {what}: B={B} S={S} H={H} K={K} hd={hd} {dtype_name} "
+            f"{'causal' if causal else 'non-causal'}", launches,
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: ref.attention_ref(q, k, v, causal=causal),
+            4.0 * B * H * hd * pairs, q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+            dtype_name, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), TOL[dtype_name], **extra)
 
-    def decode_row(model, B, Smax, H, K, hd, lens, launches, served):
+    def decode_row(model, B, Smax, H, K, hd, lens, launches, served, what="decode layer",
+                   **extra):
         q = randn((B, 1, H, hd))
         ck, cv = randn((2, B, Smax, K, hd))[1], randn((2, B, Smax, K, hd))[1]
         if isinstance(lens, list):
@@ -2058,7 +2461,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
         mask = valid.expand(B, Smax)[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)
         add("flash_decode", "decode_attention.cu", "src/repro/kernels/decode_attention.py:85",
-            f"{model} decode layer: B={B} Smax={Smax} H={H} K={K} hd={hd} bf16 "
+            f"{model} {what}: B={B} Smax={Smax} H={H} K={K} hd={hd} bf16 "
             f"lengths={lens if len(set(lens)) > 1 else lens[0]}", launches,
             lambda: flash_decode(q, ck, cv, length),
             lambda: ref.decode_attention_ref(q, ck, cv, length),
@@ -2066,34 +2469,38 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
             + 4 * length.numel(), "bfloat16",
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True), TOL["bfloat16"],
-            served=served)
+            served=served, **extra)
 
-    def bwd_row(model, B, S, H, K, hd):
-        q, k, v, do = (randn((B, S, H, hd)), randn((B, S, K, hd)), randn((B, S, K, hd)),
-                       randn((B, S, H, hd)))
-        o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    def bwd_row(model, B, S, H, K, hd, dtype_name="bfloat16", causal=True, **extra):
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = (randn((B, S, H, hd), dtype), randn((B, S, K, hd), dtype),
+                       randn((B, S, K, hd), dtype), randn((B, S, H, hd), dtype))
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
         leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
         dot = do.transpose(1, 2)
-        pairs = S * (S + 1) // 2
+        pairs = S * (S + 1) // 2 if causal else S * S
 
         def compare(out, want):
-            errs = [max_err(g, w, TOL["bfloat16"]) for g, w in zip(out, want)]
-            rels = [grad_row_rel_err(g, w, TOL["bfloat16"]) for g, w in zip(out, want)]
+            tol = TOL[dtype_name]
+            errs = [max_err(g, w, tol) for g, w in zip(out, want)]
+            rels = [grad_row_rel_err(g, w, tol) for g, w in zip(out, want)]
             return (max(e for e, _ in errs), all(ok for _, ok in errs) and all(
-                r is None or r <= GRAD_ROW_TOL["bfloat16"] for r in rels))
+                r is None or r <= GRAD_ROW_TOL[dtype_name] for r in rels))
 
         # bytes: q, k, v, o, dO and lse read once; dq, dk, dv written once
-        add("flash_attention_bwd", "flash_attention_bwd_sm90.cu",
-            "src/repro/kernels/flash_attention.py:94",
-            f"{model} training layer: B={B} S={S} H={H} K={K} hd={hd} bf16 causal", None,
-            lambda: flash_attention_bwd(q, k, v, o, lse, do),
-            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do),
-            10.0 * B * H * hd * pairs, 2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel(),
-            "bfloat16", lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True),
+        add("flash_attention_bwd", "flash_attention_bwd_sm90.cu" if dtype == bf16
+            else "flash_attention_bwd.cu", "src/repro/kernels/flash_attention.py:94",
+            f"{model} training layer: B={B} S={S} H={H} K={K} hd={hd} {dtype_name} "
+            f"{'causal' if causal else 'non-causal'}", None,
+            lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
+            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
+            10.0 * B * H * hd * pairs,
+            q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel(),
+            dtype_name, lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True),
             None, compare,
             counterpart="the reference differentiates ref.attention_ref with XLA's autodiff; "
-                        "no Pallas backward")
+                        "no Pallas backward", **extra)
 
     def router_row(T, D, E, k, launches, phase, served):
         x = randn((T, D))
@@ -2237,6 +2644,23 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     scan_shape = (B, -(-S // z.chunk), z.ssm_heads, d_inner // z.ssm_heads, z.ssm_state)
     scan_row(*scan_shape, None, "training (phase 11)")
     scan_bwd_row(*scan_shape)
+    # seamless-m4t-large-v2 (phase 13), head dim 64, group 1: an encoder
+    # layer (serving; and training, where its 72 launches a step are of
+    # this shape but the decoder's 24 causal ones), the cross-attention's
+    # decode against the 0-dim encoder length, and the training layer's
+    # backward; their launches and device us a prefill, a decode step or a
+    # training step are phase 13's, filled in there
+    e = get_config(SEAMLESS_SERVE[0])
+    B, F_ = SEAMLESS_SERVE[1:3]
+    attention_row(e.arch_id, B, F_, e.n_heads, e.n_kv_heads, e.hd, None,
+                  "encoder layer (phase 13)", causal=False, phase13="prefill", per="prefill")
+    attention_row(e.arch_id, B, F_, e.n_heads, e.n_kv_heads, e.hd, None,
+                  "training encoder layer (phase 13)", causal=False, phase13="train")
+    decode_row(e.arch_id, B, F_, e.n_heads, e.n_kv_heads, e.hd, F_, None, None,
+               "cross-attention decode layer (phase 13)", phase13="decode")
+    B, S = SEAMLESS_TRAIN_RUN[:2]
+    bwd_row(f"{e.arch_id} (phase 13)", B, S, e.n_heads, e.n_kv_heads, e.hd, causal=False,
+            phase13="train")
     for r in rows:
         print_row(r)
     return rows
@@ -2248,7 +2672,7 @@ def print_row(r):
     if "products_ms" in r:
         chain = (f", the two f32 products after it {r['products_ms']:.4f} / "
                  f"{r['products_ms_read_flush']:.4f} ms")
-    step = "training step" if "training" in r["shape"] else "decode step"
+    step = r.get("per") or ("training step" if "training" in r["shape"] else "decode step")
     print(f"  {r['name']}: {r['ms']:.4f} ms, {r['ms_read_flush']:.4f} ms under a read "
           f"flush (bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{chain}, "
@@ -2271,10 +2695,7 @@ def main() -> int:
     from repro_torch.models import bundle_for, param_count
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output")
+    print(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2323,7 +2744,7 @@ def main() -> int:
         with Phase(f"phase 8: train {TRAIN_RUN[0]} through run_training"):
             trained = train(torch, np, dev)
             for r in rows:
-                if r["name"] == "flash_attention_bwd":
+                if r["name"] == "flash_attention_bwd" and r["shape"].startswith(TRAIN_RUN[0]):
                     r["launches"] = trained["launches"]["flash_attention_bwd"]
                     r["served_us_per_step"] = trained["served"]["flash_attention_bwd"]
                     print_row(r)
@@ -2350,6 +2771,18 @@ def main() -> int:
                 if "(phase 11)" in r["shape"]:
                     r["launches"] = hybrid_trained["launches"][r["name"]]
                     r["served_us_per_step"] = hybrid_trained["served"][r["name"]]
+                    print_row(r)
+
+        with Phase(f"phase 12: serve and train {XLSTM_SERVE[0]} (ssm)"):
+            serve_and_train_xlstm(torch, np, dev)
+
+        with Phase(f"phase 13: serve and train {SEAMLESS_SERVE[0]} (encdec)"):
+            seamless = serve_and_train_seamless(torch, np, dev)
+            for r in rows:
+                if "phase13" in r:
+                    use = seamless[r["phase13"]]
+                    r["launches"] = use["launches"][r["name"]]
+                    r["served_us_per_step"] = use["served"][r["name"]]
                     print_row(r)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

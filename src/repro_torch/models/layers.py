@@ -11,7 +11,7 @@ kernels on the card, their plain versions on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -78,8 +78,12 @@ def init_weights_(model: nn.Module, seed: int, device: torch.device) -> nn.Modul
     ``seed``, as the JAX inits draw them: normal / sqrt(fan_in) for
     projections (fan_in the second-to-last dim: ``(d_in, d_out)`` weights and
     ``(E, d_in, d_out)`` experts alike), normal * 0.02 for the embedding,
-    normal * 0.1 for the Mamba2 conv, ones for norms and the skip, zeros for
-    biases and ``dt_bias``, ``log(linspace(1, 16, H))`` for ``a_log``.  Each
+    normal * 0.1 for the Mamba2 and xLSTM convs, ones for norms, the skip
+    and the xLSTM group norms (``gn``), zeros for biases and ``dt_bias``,
+    ``log(linspace(1, 16, H))`` for ``a_log``; the xLSTM gate biases as the
+    reference sets them: the mLSTM's zeros(H) then linspace(3, 6, H), the
+    sLSTM's zeros(2D), 3.0 (D) then zeros(D).  The sLSTM's recurrent
+    ``r_gates`` (4, H, hd, hd) take normal / sqrt(hd), their fan-in.  Each
     parameter is drawn in f32 scratch of at most 4096 leading rows, then
     cast into place.  (The two frameworks' generators differ: for equal
     weights, use ``interop``.)"""
@@ -87,10 +91,18 @@ def init_weights_(model: nn.Module, seed: int, device: torch.device) -> nn.Modul
     gen.manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if p.dim() == 1 and leaf in ("w", "norm", "q_norm", "k_norm", "d_skip"):
+        if p.dim() == 1 and leaf in ("w", "norm", "q_norm", "k_norm", "d_skip", "gn"):
             p.fill_(1.0)
         elif leaf in ("bq", "bk", "bv", "dt_bias"):
             p.zero_()
+        elif leaf == "b_gates":
+            p.zero_()
+            if name.rsplit(".", 2)[-2] == "mlstm":      # (2H,): input, then forget
+                H = p.shape[0] // 2
+                p[H:] = torch.linspace(3.0, 6.0, H, device=device)
+            else:                                       # (4D,): z, i, f, o
+                D = p.shape[0] // 4
+                p[2 * D:3 * D] = 3.0
         elif leaf == "a_log":
             p.copy_(torch.log(torch.linspace(1.0, 16.0, p.shape[0], device=device)))
         else:
@@ -181,13 +193,35 @@ def _project_qkv(p: Attention, x: torch.Tensor, n_heads: int, n_kv: int,
     return q, k, v
 
 
+def _project_q(p: Attention, x: torch.Tensor, n_heads: int, head_dim: int, eps: float
+               ) -> torch.Tensor:
+    """q alone, as ``_project_qkv`` gives it without RoPE: (B, S, H, hd)."""
+    q = x @ p.wq
+    if hasattr(p, "bq"):
+        q = q + p.bq
+    q = q.reshape(*x.shape[:2], n_heads, head_dim)
+    return rms_norm(p.q_norm, q, eps) if hasattr(p, "q_norm") else q
+
+
 def attention_block(p: Attention, x: torch.Tensor, *, n_heads: int, n_kv: int,
-                    head_dim: int, theta: float = 1e6, eps: float = 1e-5
+                    head_dim: int, theta: float = 1e6, causal: bool = True,
+                    eps: float = 1e-5,
+                    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                     ) -> torch.Tensor:
-    """Full-sequence causal self-attention."""
+    """Full-sequence attention (training / prefill).
+
+    ``kv_override`` supplies the encoder's K/V for cross-attention: q alone
+    is projected from x, without RoPE, and the attention is not causal (the
+    reference also projects K/V from x and drops them; the result is the
+    same)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, theta, eps)
-    o = ops.attention(q, k, v, causal=True)              # (B, S, H, hd)
+    if kv_override is None:
+        q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, theta, eps)
+    else:
+        k, v = kv_override
+        q = _project_q(p, x, n_heads, head_dim, eps)
+        causal = False
+    o = ops.attention(q, k, v, causal=causal)            # (B, S, H, hd)
     return o.reshape(B, S, n_heads * head_dim) @ p.wo
 
 

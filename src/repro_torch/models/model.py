@@ -1,11 +1,11 @@
 """Model interface: config -> {init, loss_fn, apply, prefill, decode_step,
 init_cache}, the input specs of a cell, and its analytic FLOPs.
 
-The port's counterpart of ``repro/models/model.py`` for the families it has
-ported so far: the dense decoder, which also runs the ``vlm`` family (the
-early-fusion backbone, as the JAX package runs it), the MoE decoder and the
-Mamba2 hybrid, all of which serve and train.  The ssm and encdec families
-raise until their slices land.
+The port's counterpart of ``repro/models/model.py`` for all six families:
+the dense decoder, which also runs the ``vlm`` family (the early-fusion
+backbone, as the JAX package runs it), the MoE decoder, the Mamba2 hybrid,
+the xLSTM (``ssm``) and the encoder-decoder (``encdec``), all of which
+serve and train.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ __all__ = ["ModelBundle", "PORTED_FAMILIES", "TRAINED_FAMILIES", "bundle_for",
            "model_module", "param_count", "memory_estimate", "input_specs", "synth_batch",
            "model_flops"]
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
-TRAINED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
+TRAINED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
 
 
 @dataclass(frozen=True)
@@ -49,6 +49,10 @@ def model_module(cfg: ArchConfig) -> ModuleType:
         from . import moe as m
     elif cfg.family == "hybrid":
         from . import hybrid as m
+    elif cfg.family == "ssm":
+        from . import xlstm as m
+    elif cfg.family == "encdec":
+        from . import encdec as m
     else:
         raise ValueError(f"family {cfg.family!r} is not ported yet; the PyTorch port "
                          f"runs {PORTED_FAMILIES}")
@@ -91,12 +95,20 @@ def _spec(shape, dtype) -> torch.Tensor:
 def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
     """Every model input of this (arch, shape) cell as a meta tensor: token
     and label batches (train), the prompt batch (prefill), or one new token
-    and the whole cache at ``seq_len`` (decode)."""
+    and the whole cache at ``seq_len`` (decode).  The encoder-decoder also
+    takes the frontend stub's frame embeddings (B, S, D) in the config's
+    dtype; its prompt is the frames and one token a sequence, its decode
+    cache holds ``seq_len`` encoder positions (``init_cache``'s default)."""
     m = model_module(cfg)
     B, S = shape.global_batch, shape.seq_len
+    frames = _spec((B, S, cfg.d_model), getattr(torch, cfg.dtype))
+    encdec = cfg.family == "encdec"
     if shape.kind == "train":
-        return {"tokens": _spec((B, S), torch.int32), "labels": _spec((B, S), torch.int32)}
+        specs = {"tokens": _spec((B, S), torch.int32), "labels": _spec((B, S), torch.int32)}
+        return {**specs, "frames": frames} if encdec else specs
     if shape.kind == "prefill":
+        if encdec:
+            return {"frames": frames, "tokens": _spec((B, 1), torch.int32)}
         return {"tokens": _spec((B, S), torch.int32)}
     if shape.kind == "decode":
         return {"tokens": _spec((B, 1), torch.int32),
@@ -108,8 +120,8 @@ def synth_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0, *,
                 device=None) -> Dict[str, Any]:
     """Real (small!) tensors matching ``input_specs``, for smoke tests: token
     ids uniform in the vocab from a ``torch.Generator`` seeded with
-    ``seed`` (the reference draws from a JAX key, so the values differ), a
-    zeroed cache."""
+    ``seed`` (the reference draws from a JAX key, so the values differ),
+    frames normal, a fresh cache."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     out: Dict[str, Any] = {}

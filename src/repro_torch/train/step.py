@@ -7,7 +7,7 @@ policies and microbatch accumulation in f32.  It runs eagerly: there is no
 cross-pod gradient compression (``compress_pods``) needs a multi-device
 mesh and stays out.  The serve steps are the entry point through which the
 JAX package serves the families its ``ServeEngine`` does not take (MoE,
-hybrid); the encoder-decoder input form lands with its family.
+hybrid, xLSTM, the encoder-decoder).
 """
 
 from __future__ import annotations
@@ -95,10 +95,13 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, remat: str = "none",
 
 def make_prefill(cfg: ArchConfig) -> Callable:
     """``prefill(params, {"tokens": (B, S)}, max_seq=None)`` -> (last-position
-    logits (B, 1, V), cache)."""
+    logits (B, 1, V), cache); the encoder-decoder takes ``{"frames": (B, F,
+    D), "tokens": (B, S)}``."""
     bundle = bundle_for(cfg)
 
     def prefill(params, inputs: Dict[str, torch.Tensor], max_seq: Optional[int] = None):
+        if cfg.family == "encdec":
+            return bundle.prefill(cfg, params, inputs, max_seq=max_seq)
         return bundle.prefill(cfg, params, inputs["tokens"], max_seq=max_seq)
 
     return prefill

@@ -117,7 +117,7 @@ def _spec_tree(tree):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen3-moe-30b-a3b", "zamba2-2.7b",
-                                  "lidc-demo"])
+                                  "lidc-demo", "xlstm-350m", "seamless-m4t-large-v2"])
 def test_input_specs_and_model_flops_match_jax(arch):
     jcfg, cfg = jax_config(arch), get_config(arch)
     small = {"small_train": ("train", 64, 2), "small_decode": ("decode", 32, 3)}
@@ -140,8 +140,13 @@ def test_synth_batch_matches_the_specs():
                                      jax.random.PRNGKey(1))
         assert _spec_tree(got) == _spec_tree(want)
         assert int(got["tokens"].min()) >= 0 and int(got["tokens"].max()) < cfg.vocab
-    with pytest.raises(ValueError, match="not ported"):
-        input_specs(smoke_of("xlstm-350m"), ShapeConfig("s", "train", 8, 1))
+    for arch in ("xlstm-350m", "seamless-m4t-large-v2"):   # O(1) cells; frames, enc_len
+        jcfg, cfg = jax_smoke(arch), smoke_of(arch)
+        for kind in ("train", "prefill", "decode"):
+            got = synth_batch(cfg, ShapeConfig("s", kind, 16, 2), seed=1, device=CPU)
+            want = jax_model.synth_batch(jcfg, JShapeConfig("s", kind, 16, 2),
+                                         jax.random.PRNGKey(1))
+            assert _spec_tree(got) == _spec_tree(want), (arch, kind)
 
 
 # ---------------------------------------------------------------------------

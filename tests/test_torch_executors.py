@@ -7,8 +7,8 @@ against the JAX package's (``repro/runtime/{executors,fleet}.py``):
 - a mixed fleet: one reference ``LidcSystem`` with a pod whose endpoints are
   the reference's and a pod whose endpoints are the port's.  A train job
   killed after its step-2 checkpoint on one pod resumes on the other, in
-  both directions; archs the port cannot run for an app are never placed on
-  its pod.
+  both directions; an arch the port's pod leaves out of its endpoints is
+  never placed there.
 
 The reference's cost model states TPU v5e constants; the port's states the
 H100's.  Where durations are compared, the reference module's constants are
@@ -82,10 +82,10 @@ def test_roofline_step_time_matches_the_reference(h100_reference):
 
 
 def test_memory_model_matches_the_reference():
-    """Equal wherever the port runs the family, for every shaped job of any
-    app and for shapeless train jobs; ``None`` where the reference gives
-    none, and for the ssm and encdec families.  A shapeless serve job is
-    sized at the serve executor's shape instead (the test below)."""
+    """Equal wherever the port runs the family (every family), for every
+    shaped job of any app and for shapeless train jobs; ``None`` where the
+    reference gives none.  A shapeless serve job is sized at the serve
+    executor's shape instead (the test below)."""
     archs = list(registry()) + SMOKE_NAMES + ["not-a-model"]
     for arch in archs:
         ported = arch in registry() and get_config(arch).family in PORTED_FAMILIES
@@ -111,7 +111,9 @@ def test_shapeless_serve_job_is_sized_at_the_serve_executors_shape():
         for chips in (1, 4):
             got = tex.memory_model(JobSpec("serve", {"arch": arch, "chips": 1}), chips)
             assert got == memory_estimate(get_config(arch), tex.SERVE_SHAPE, chips)
-    assert tex.memory_model(JobSpec("serve", {"arch": "xlstm-350m"}), 1) is None
+    assert tex.memory_model(JobSpec("serve", {"arch": "xlstm-350m"}), 1) == \
+        memory_estimate(get_config("xlstm-350m"), tex.SERVE_SHAPE, 1)
+    assert tex.memory_model(JobSpec("serve", {"arch": "not-a-model"}), 1) is None
     spec = {"arch": "qwen3-1.7b", "chips": 1}
     assert jex.memory_model(JaxJobSpec("serve", spec), 1) > tex.HBM_GB_PER_CHIP * 1e9
     assert tex.memory_model(JobSpec("serve", spec), 1) < tex.HBM_GB_PER_CHIP * 1e9
@@ -223,20 +225,20 @@ def test_executors_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_endpoints_list_only_what_the_port_runs():
-    """train and serve: the archs whose resolved family the port runs
-    (dense, vlm, moe, hybrid); an app left with no arch gets no endpoint (an
-    endpoint with no archs would take any)."""
+    """train and serve: the archs whose resolved family the port runs (all
+    six families, so every arch that resolves); an app left with no arch
+    gets no endpoint (an endpoint with no archs would take any)."""
     names = list(registry()) + SMOKE_NAMES + ["not-a-model"]
     train, serve, blast = standard_endpoints(names, device="cpu")
     assert (train.app, serve.app, blast.app) == ("train", "serve", "blast")
     fam = {n: jex._resolve_arch(n).family for n in names if n != "not-a-model"}
-    assert train.archs == tuple(n for n in fam if fam[n] in ("dense", "vlm", "moe", "hybrid"))
-    assert serve.archs == tuple(n for n in fam if fam[n] in ("dense", "vlm", "moe", "hybrid"))
+    assert set(fam.values()) == set(PORTED_FAMILIES)
+    assert train.archs == serve.archs == tuple(fam)
     assert {"qwen3-1.7b-smoke", "qwen3-moe-30b-a3b", "qwen3-1.7b", "zamba2-2.7b",
-            "zamba2-2.7b-smoke"} <= set(train.archs)
-    assert "xlstm-350m" not in train.archs
+            "zamba2-2.7b-smoke", "xlstm-350m", "seamless-m4t-large-v2-smoke"} \
+        <= set(train.archs)
     assert serve.families == ("dense", "vlm")
-    assert [e.app for e in standard_endpoints(["xlstm-350m"], device="cpu")] == ["blast"]
+    assert [e.app for e in standard_endpoints(["not-a-model"], device="cpu")] == ["blast"]
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +246,10 @@ def test_endpoints_list_only_what_the_port_runs():
 # ---------------------------------------------------------------------------
 
 FLEET_ARCHS = ["lidc-demo", "lidc-demo-smoke", "chameleon-smoke", "xlstm-350m-smoke",
-               "qwen3-1.7b-smoke", "zamba2-smoke"]
+               "qwen3-1.7b-smoke", "zamba2-smoke", "qwen2-0.5b-smoke"]
+# an arch the port's pod leaves out of its endpoints (the overlay places its
+# jobs on the reference's pod only)
+PORT_LEAVES_OUT = "qwen2-0.5b-smoke"
 POD = {"jax": "jax-pod", "torch": "h100-pod"}
 
 
@@ -262,7 +267,8 @@ def mixed_fleet(kinds):
                                hbm_gb_per_chip=tex.HBM_GB_PER_CHIP,
                                memory_model=tex.memory_model,
                                endpoints=standard_endpoints(
-                                   FLEET_ARCHS, ckpt_every=2, device="cpu",
+                                   [a for a in FLEET_ARCHS if a != PORT_LEAVES_OUT],
+                                   ckpt_every=2, device="cpu",
                                    plan_type=JaxExecPlan, result_type=JaxExecResult))
     return system
 
@@ -345,16 +351,28 @@ def test_train_job_resumes_on_the_other_framework(monkeypatch, first, then):
     resume_on_the_other_framework(monkeypatch, first, then, "lidc-demo-smoke")
 
 
+@pytest.mark.parametrize("first,then", [("jax", "torch"), ("torch", "jax")])
+def test_xlstm_train_job_resumes_on_the_other_framework(monkeypatch, first, then):
+    """xlstm-350m-smoke (the ssm family, bf16).  seamless-smoke has no such
+    case: both frameworks' train executors refuse the f32 frames its data
+    stream makes (``tests/test_torch_encdec.py``)."""
+    result = resume_on_the_other_framework(monkeypatch, first, then, "xlstm-350m-smoke")
+    assert result["arch"] == "xlstm-smoke"
+
+
 def test_archs_the_port_cannot_run_are_placed_elsewhere(monkeypatch):
-    """An xlstm-350m-smoke (ssm) train job lands on the reference's pod,
-    though the port's is the nearer; with only the port's pod it is placed
-    nowhere, while a serve job completes there.  A qwen3-1.7b-smoke train
-    job (resolved to the MoE smoke, which the port trains) lands on the
-    port's nearer pod.  Placement is what is tested: the reference's pod
-    simulates its jobs (its real-compute limit set to 0 here)."""
+    """A train job of an arch the port's pod leaves out of its endpoints
+    (``PORT_LEAVES_OUT``; the port runs every family since the xLSTM and
+    encoder-decoder slice) lands on the reference's pod, though the port's
+    is the nearer; with only the port's pod it is placed nowhere, while a
+    serve job completes there.  A qwen3-1.7b-smoke train job (resolved to
+    the MoE smoke, which the port trains) lands on the port's nearer pod.
+    Placement is what is tested: the reference's pod simulates its jobs
+    (its real-compute limit set to 0 here).  The name is kept from when the
+    left-out arch was one the port could not run."""
     monkeypatch.setattr(jex, "_REAL_TRAIN_PARAM_LIMIT", 0)
     system = mixed_fleet(("torch", "jax"))
-    for arch, pod in (("xlstm-350m-smoke", "jax"), ("qwen3-1.7b-smoke", "torch")):
+    for arch, pod in ((PORT_LEAVES_OUT, "jax"), ("qwen3-1.7b-smoke", "torch")):
         handle = system.client.run_job({"app": "train", "arch": arch, "shape": "custom",
                                         "chips": 1, "steps": 2})
         assert handle.state == "Completed" and handle.result["cluster"] == POD[pod], arch
@@ -363,7 +381,7 @@ def test_archs_the_port_cannot_run_are_placed_elsewhere(monkeypatch):
         == ["qwen3-1.7b-smoke"]
 
     alone = mixed_fleet(("torch",))
-    handle = alone.client.submit({"app": "train", "arch": "xlstm-350m-smoke",
+    handle = alone.client.submit({"app": "train", "arch": PORT_LEAVES_OUT,
                                   "shape": "custom", "chips": 1, "steps": 2})
     assert handle is None
     assert not alone.overlay.clusters[POD["torch"]].jobs

@@ -348,6 +348,80 @@ def test_flash_decode_scalar_length_equals_per_slot_lengths(cuda_device, dtype, 
     assert torch.equal(flash_decode(q, ck, cv, scalar), flash_decode(q, ck, cv, per_slot))
 
 
+# seamless-m4t-large-v2 (chip_smoke.py phase 13): head dim 64, group 1;
+# B = 4 requests of 1024 frames, a decoder of up to 1024 tokens (training)
+# or 64 (serving)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq, Sk, causal", [(1024, 1024, False), (1, 1024, False),
+                                             (1024, 1024, True), (1, 1, True)])
+def test_flash_attention_kernel_at_seamless_shapes(cuda_device, dtype, Sq, Sk, causal):
+    """An encoder layer and a training cross-attention (Sq = Sk = 1024, no
+    mask); a one-token prefill's cross-attention over 1024 frames; the
+    decoder's causal self-attention in training (1024) and in a one-token
+    prefill (1)."""
+    q, k, v = _randn(11, (4, Sq, 16, 64), (4, Sk, 16, 64), (4, Sk, 16, 64), dtype=dtype,
+                     device=cuda_device)
+    before = flash_attention.launches
+    out = ops.attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    _assert_close(out, ref.attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bwd_kernel_at_the_seamless_training_shape(cuda_device, dtype, causal):
+    """The encoder's and the cross-attention's backward (no mask) and the
+    decoder self-attention's (causal), 4 x 1024."""
+    q, k, v, o, lse, do = _bwd_inputs(13, 4, 1024, 1024, 16, 16, 64, causal, dtype,
+                                      cuda_device)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        _assert_close(g, w, dtype)
+        _assert_grad_rows_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Smax, length", [(1024, 1024), (1024, [1, 33, 500, 1024]), (64, 33)])
+def test_flash_decode_kernel_at_the_seamless_shape(cuda_device, dtype, Smax, length):
+    """The cross-attention's decode against the 0-dim encoder length (as
+    ``models/encdec.py`` passes it) and per-slot lengths over 1024 frames;
+    the self-attention's decode against the 0-dim ``index + 1`` over a
+    64-token cache."""
+    q, ck, cv = _randn(12, (4, 1, 16, 64), (2, 4, Smax, 16, 64), (2, 4, Smax, 16, 64),
+                       dtype=dtype, device=cuda_device)
+    ck, cv = ck[1], cv[1]
+    length = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    before = flash_decode.launches
+    out = ops.decode_attention(q, ck, cv, length)
+    assert flash_decode.launches == before + 1
+    want = ref.decode_attention_ref(q, ck, cv, length)
+    _assert_close(out, want, dtype)
+    _assert_rows_close(out, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_block_is_one_kernel_launch(cuda_device, dtype):
+    """``attention_block`` given the encoder's K/V: q alone is projected,
+    one non-causal launch, the reference's result."""
+    from repro_torch.models import layers as L
+    dt = getattr(torch, dtype)
+    p = L.Attention(256, 4, 4, 64, device=cuda_device, dtype=dt)
+    L.init_weights_(p, 0, cuda_device)
+    x, k, v = _randn(14, (2, 3, 256), (2, 9, 4, 64), (2, 9, 4, 64), dtype=dtype,
+                     device=cuda_device)
+    before = flash_attention.launches
+    out = L.attention_block(p, x, n_heads=4, n_kv=4, head_dim=64, kv_override=(k, v))
+    assert flash_attention.launches == before + 1 and out.dtype == dt
+    q = (x @ p.wq).reshape(2, 3, 4, 64)
+    want = ref.attention_ref(q, k, v, causal=False).reshape(2, 3, 256) @ p.wo
+    _assert_close(out, want, dtype)
+
+
 def _gating_logits(T, E, seed, tied, device):
     x = np.random.default_rng(seed).standard_normal((T, E)).astype(np.float32)
     if tied:                      # many exact ties, and one constant row

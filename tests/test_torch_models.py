@@ -4,7 +4,8 @@ tokens through the JAX model and the port, on the CPU.
 
 Configs: lidc-demo-smoke, qwen2-smoke (QKV bias, head dim 8, group 7),
 qwen3-smoke (qk_norm) and chameleon-smoke (the vlm family on the dense
-decoder, qk_norm, rope theta 1e4) in f32 at 2e-5; one bf16 case at 3e-2.
+decoder, qk_norm, rope theta 1e4) in f32 at 2e-5; one bf16 case at 3e-2;
+phi4-smoke, mistral-smoke and grok-1-smoke (MoE) in f32 at 2e-5.
 """
 
 import dataclasses
@@ -56,7 +57,8 @@ def _close(t_out, j_out, tol=2e-5):
 
 
 def test_configs_match_jax():
-    for arch in ARCHS + ["phi4-mini-3.8b", "qwen3-moe-30b-a3b", "zamba2-2.7b"]:
+    for arch in ARCHS + ["phi4-mini-3.8b", "qwen3-moe-30b-a3b", "zamba2-2.7b", "xlstm-350m",
+                         "seamless-m4t-large-v2", "mistral-large-123b", "grok-1-314b"]:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_config(arch))
         assert dataclasses.asdict(smoke_of(arch)) == dataclasses.asdict(jax_smoke(arch))
 
@@ -81,7 +83,8 @@ def test_param_count_and_memory_of_qwen3_1p7b_match_jax():
         assert memory_estimate(cfg, shape, 4) == jax_memory(jcfg, JAX_SHAPES[name], 4)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-2.7b", "xlstm-350m",
+                                  "seamless-m4t-large-v2"])
 def test_param_count_and_memory_of_moe_and_hybrid_match_jax(arch):
     """Full-size counts from the meta device (nothing allocated), the MoE's
     active count, and the hybrid's memory estimate, which counts only its
@@ -146,6 +149,37 @@ def test_per_slot_decode_matches_jax(f32_pair):
     _close(cache["k"], jcache["k"])
     _close(cache["v"], jcache["v"])
     np.testing.assert_array_equal(cache["index"].numpy(), index + 1)
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mistral-large-123b", "grok-1-314b"])
+def test_remaining_smoke_configs_match_jax(arch):
+    """phi4-smoke (group 3), mistral-smoke and grok-1-smoke (the MoE
+    decoder, 8 experts top-2) in f32 at 2e-5, through each family's bundle
+    and the serve steps: the weights' round trip, the logits, the prefill's
+    logits and cache, three decode steps."""
+    from repro_torch.train.step import make_prefill, make_serve_step
+    jcfg, jparams, cfg, params = _pair(arch)
+    arrays = _flatten(jparams)
+    back = params_to_jax(params)
+    assert sorted(back) == sorted(arrays) and param_count(cfg) == jax_param_count(jcfg)
+    for key, arr in arrays.items():
+        np.testing.assert_array_equal(back[key], arr, err_msg=key)
+    jb, b = jax_bundle(jcfg), bundle_for(cfg)
+    toks = _tokens(cfg, (2, 10), seed=1)
+    _close(b.apply(cfg, params, torch.from_numpy(toks[:, :9])),
+           jb.apply(jcfg, jparams, jnp.asarray(toks[:, :9])))
+    jlog, jcache = jb.prefill(jcfg, jparams, jnp.asarray(toks[:, :7]), max_seq=12)
+    logits, cache = make_prefill(cfg)(params, {"tokens": torch.from_numpy(toks[:, :7])},
+                                      max_seq=12)
+    _close(logits, jlog)
+    _close(cache["k"], jcache["k"])
+    step = make_serve_step(cfg)
+    for i in range(7, 10):
+        jlog, jcache = jb.decode_step(jcfg, jparams, jcache, jnp.asarray(toks[:, i:i + 1]))
+        logits, cache = step(params, cache, torch.from_numpy(toks[:, i:i + 1]))
+        _close(logits, jlog)
+    _close(cache["v"], jcache["v"])
+    assert int(cache["index"]) == 10
 
 
 def test_prefill_matches_jax_bf16():
@@ -223,16 +257,18 @@ def test_init_is_seeded_and_shaped():
 
 
 def test_bundle_for_is_dense_only():
-    """The ported families resolve (dense, vlm on the dense bundle, as the
-    reference's ``bundle_for`` names it, moe, hybrid); the others (ssm,
-    encdec) still raise."""
+    """Every family resolves (dense, vlm on the dense bundle, as the
+    reference's ``bundle_for`` names it, moe, hybrid, ssm, encdec); a family
+    the port does not know still raises.  The name is kept from when only
+    the dense family was ported."""
     for arch, family in (("lidc-demo", "dense"), ("chameleon-34b", "dense"),
-                         ("qwen3-moe-30b-a3b", "moe"), ("zamba2-2.7b", "hybrid")):
+                         ("qwen3-moe-30b-a3b", "moe"), ("zamba2-2.7b", "hybrid"),
+                         ("xlstm-350m", "ssm"), ("seamless-m4t-large-v2", "encdec")):
         assert bundle_for(smoke_of(arch)).family == family
         assert jax_bundle(jax_smoke(arch)).family == family
-    for arch in ("xlstm-350m", "seamless-m4t-large-v2"):
+    for family in ("rnn", "diffusion"):
         with pytest.raises(ValueError, match="not ported"):
-            bundle_for(smoke_of(arch))
+            bundle_for(dataclasses.replace(smoke_of("lidc-demo"), family=family))
 
 
 def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
@@ -250,6 +286,7 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch, repro_torch.interop, repro_torch.serve.engine, "
             "repro_torch.launch.serve, repro_torch.kernels.ops, repro_torch.models.moe, "
             "repro_torch.models.mamba2, repro_torch.models.hybrid, "
+            "repro_torch.models.xlstm, repro_torch.models.encdec, "
             "repro_torch.train.step, repro_torch.kernels.moe_gating, "
             "repro_torch.kernels.ssd_scan, repro_torch.train.trainer, "
             "repro_torch.launch.train, repro_torch.ckpt.checkpoint, "

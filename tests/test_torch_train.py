@@ -242,11 +242,14 @@ def test_tied_embedding_takes_its_gradient_from_both_uses():
 def test_moe_and_hybrid_training_is_not_ported_yet():
     """Every family the port trains (the MoE family since its router has a
     backward, tests/test_torch_moe_train.py; the hybrid since its scan has
-    one, tests/test_torch_hybrid_train.py) trains through its own module's
-    ``loss_fn``; the name is kept from when the two did not train."""
+    one, tests/test_torch_hybrid_train.py; the xLSTM and the
+    encoder-decoder, tests/test_torch_xlstm.py and test_torch_encdec.py)
+    trains through its own module's ``loss_fn``; the name is kept from when
+    the MoE and hybrid families did not train."""
     from repro_torch.models.model import TRAINED_FAMILIES
-    assert set(TRAINED_FAMILIES) == {"dense", "vlm", "moe", "hybrid"}
-    for arch in ("lidc-demo", "chameleon-34b", "qwen3-moe-30b-a3b", "zamba2-2.7b"):
+    assert set(TRAINED_FAMILIES) == {"dense", "vlm", "moe", "hybrid", "ssm", "encdec"}
+    for arch in ("lidc-demo", "chameleon-34b", "qwen3-moe-30b-a3b", "zamba2-2.7b",
+                 "xlstm-350m", "seamless-m4t-large-v2"):
         cfg = smoke_of(arch)
         assert cfg.family in TRAINED_FAMILIES
         assert bundle_for(cfg).loss_fn is model_module(cfg).loss_fn, arch
