@@ -18,7 +18,9 @@
    2, 7 and 8, Sq = Sk and Sq < Sk, ragged tails around the 64-row tile
    (Sq and Sk at 63-65 and 127-129), Sq % 4 != 0 and strided views, in f32
    and bf16, against its plain closed form, and the forward's
-   log-sum-exp; the router backward at decode and prefill row counts
+   log-sum-exp; in f32 also both at the edges of the f32 forward's 128-row
+   blocks (Sq and Sk at 127-129 and 255-257, groups 1, 2 and 3) and at
+   lidc-100m's training layer; the router backward at decode and prefill row counts
    (1-4096, E = 128, k = 8), with and without the probabilities' gradient
    and with repeated probabilities, against its closed form, and the
    registered router op's dx and drouter against autograd through the
@@ -54,7 +56,10 @@
    and the two f32 products that follow it; and the state scan and its
    reverse at phase 11's Mamba2 block; seamless's encoder layer (serving
    and training), its training layer's backward and its cross-attention
-   decode at a 0-dim length (launches and device us from phase 13); every kernel
+   decode at a 0-dim length (launches and device us from phase 13); the f32
+   paths of both attention kernels (the CUDA cores, exact f32) at
+   seamless's encoder shape and at lidc-100m's training layer (launches
+   and device us from phase 14), beside SDPA in f32; every kernel
    also beside the time of a one-element PyTorch op, the floor of any
    launch;
 8. trains qwen3-1.7b at full width and depth (1.72 B params, bf16, f32
@@ -130,12 +135,27 @@
    phase 10's launch, repeat and resume gates, and the attention launches
    of a step by dtype.  Phases 12 and 13 print ms and tokens a step, the
    model-FLOPs share, peak memory, the idle share and the leading device
-   ops.
+   ops;
+14. trains lidc-100m, ``examples/train_100m.py``'s ``CONFIG_100M`` written
+   out field by field (10 layers, d_model 640, 10/5 heads of 64, tied
+   embeddings, f32; 93.6 M params), weights from a seeded generator on the
+   card, through ``run_training``: 4 x 1024 tokens, 10 steps,
+   warmup-cosine to the example's 1e-3, remat "none", the step-5
+   checkpoint kept in an in-memory lake.  Every attention runs the f32
+   kernels.  Gates: 10 forward and 10 backward attention launches a step,
+   all f32; the gate batch's loss and every gradient within 1e-4 of that
+   tensor's largest value on the plain f32 path on the card, and bit-equal
+   when run twice; finite losses that fall; the checkpoint restored
+   bit-equal and steps 6-10 replayed bit for bit.  Prints ms and tokens a
+   step, the model-FLOPs share of 989 TFLOP/s and of the f32 peak (67
+   TFLOP/s), peak memory, the idle share, the leading device ops and the
+   attention kernels' device us a step.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
 profiled decode steps give each kernel's device time per served step.
-Phases 8-13 do the same around their runs and profiled steps.  The last
+Phases 8-14 do the same around their runs and profiled steps.  The
+script prints its total time, then the kernel table as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero and
 prints no result.
@@ -230,6 +250,19 @@ XLSTM_TRAIN_RUN = (4, 1024, 10, 5, 3e-4, "none")
 # the model's dtype
 SEAMLESS_SERVE = ("seamless-m4t-large-v2", 4, 1024, 64, 32)
 SEAMLESS_TRAIN_RUN = (4, 1024, 10, 5, 3e-4, "none")
+
+# phase 14: examples/train_100m.py's CONFIG_100M, the repo's one end-to-end
+# training driver, written out field by field (the port imports nothing of
+# examples/ or of repro); trained as (batch, sequence, steps, checkpoint at,
+# the example's peak lr, remat).  Its gradient gate holds each tensor of the
+# kernel path to LIDC_GRAD_TOL of that tensor's largest value on the plain
+# path, both f32 on the card (phase 12's gate)
+LIDC_100M = {"arch_id": "lidc-100m", "family": "dense", "n_layers": 10, "d_model": 640,
+             "n_heads": 10, "n_kv_heads": 5, "d_ff": 2560, "vocab": 50_304,
+             "rope_theta": 1e4, "tie_embeddings": True, "dtype": "float32",
+             "source": "this repo (examples/train_100m.py)"}
+LIDC_TRAIN_RUN = (4, 1024, 10, 5, 1e-3, "none")
+LIDC_GRAD_TOL = 1e-4
 
 
 class Phase:
@@ -331,9 +364,9 @@ def kernels():
 # wrapper -> a part of the name of every CUDA kernel it launches, as the
 # profiler reports them
 KERNEL_SYMBOLS = {
-    "flash_attention": ("attention_bf16_kernel", "flash_attention_kernel"),
+    "flash_attention": ("attention_bf16_kernel", "attention_f32_kernel"),
     "flash_attention_bwd": ("bwd_dot_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel",
-                            "bwd_dkdv_kernel", "bwd_dq_kernel"),
+                            "bwd_dkdv_f32_kernel", "bwd_dq_f32_kernel"),
     "flash_decode": ("flash_decode_",),
     "moe_gating": ("moe_gating_kernel",),
     "moe_router": ("moe_router_kernel", "moe_router_decode_kernel"),
@@ -479,6 +512,20 @@ BWD_CASES = [  # (B, Sq, Sk, H, K, hd, causal[, "strided"])
     (4, 1024, 1024, 16, 16, 64, True),
 ]
 
+# f32 only, forward and backward: the edges of the f32 forward's 128-row
+# blocks (128 positions of one head at odd groups, the 64 positions of two
+# heads at even groups) and lidc-100m's training layer (phase 14)
+F32_EDGE_CASES = [  # (B, Sq, Sk, H, K, hd, causal)
+    *((1, S, S, 4, 4, hd, causal) for S in (127, 128, 129, 255, 256, 257)
+      for hd in (64, 80, 128) for causal in (True, False)),
+    *((1, S, S, 4, 2, 64, True) for S in (127, 128, 129, 255, 256, 257)),
+    *((1, Sq, Sk, 4, 4, 64, causal) for Sq, Sk in ((127, 257), (129, 256), (255, 257),
+                                                    (128, 129)) for causal in (True, False)),
+    (1, 257, 129, 4, 4, 64, False),
+    (2, 257, 257, 6, 2, 64, True),         # group 3: 128 positions of one head
+    (4, 1024, 1024, 10, 5, 64, True),      # lidc-100m's layer, group 2
+]
+
 DECODE_CASES = [  # (B, Smax, H, K, hd, lengths[, "0-dim": one length as a 0-dim tensor])
     (8, 2048, 16, 8, 128, [1, 7, 64, 65, 1000, 1500, 2047, 2048]),
     (3, 300, 14, 2, 64, [1, 150, 300]),
@@ -555,7 +602,8 @@ def check_kernels(torch, dev):
 
     for dtype_name in ("float32", "bfloat16"):
         dtype, tol = getattr(torch, dtype_name), TOL[dtype_name]
-        for B, Sq, Sk, H, K, hd, causal, *strided in ATTN_CASES:
+        edges = F32_EDGE_CASES if dtype_name == "float32" else []
+        for B, Sq, Sk, H, K, hd, causal, *strided in ATTN_CASES + edges:
             if strided:
                 q = randn((B, Sq, H, hd + 8), dtype)[..., :hd]
                 k, v = (randn((2, B, Sk, K, hd), dtype)[1] for _ in range(2))
@@ -607,7 +655,8 @@ def check_attention_bwd(torch, dev, gen):
         def randn(shape):
             return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-        for B, Sq, Sk, H, K, hd, causal, *strided in BWD_CASES:
+        edges = F32_EDGE_CASES if dtype_name == "float32" else []
+        for B, Sq, Sk, H, K, hd, causal, *strided in BWD_CASES + edges:
             if strided:
                 q, do = randn((B, Sq, H, hd + 8))[..., :hd], randn((B, Sq, H, hd + 8))[..., :hd]
                 k, v = randn((2, B, Sk, K, hd))[1], randn((2, B, Sk, K, hd))[1]
@@ -2071,15 +2120,17 @@ def train_hybrid(torch, np, dev):
 # phase 12: xlstm-350m, served and trained at full width and depth
 # ---------------------------------------------------------------------------
 
-def step_measures(torch, cfg, shape, step_s, peak):
-    """ms and tokens a step, the model-FLOPs share of 989 TFLOP/s, peak
-    memory: one line."""
+def step_measures(torch, cfg, shape, step_s, peak, f32=False):
+    """ms and tokens a step, the model-FLOPs share of 989 TFLOP/s (with
+    ``f32`` also of the f32 peak, 67 TFLOP/s), peak memory: one line."""
     from repro_torch.models import model_flops
     flops = model_flops(cfg, shape)
     tokens = shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len)
+    f32_share = (f" mfu_f32={flops / step_s / PEAK_FLOPS['float32']:.4f} (of the f32 peak, "
+                 f"67 TFLOP/s)" if f32 else "")
     return (f"ms_per_step={1e3 * step_s:.1f} tokens_per_s={tokens / step_s:.1f} "
             f"model_flops_per_step={flops:.4e} mfu={flops / step_s / PEAK_FLOPS['bfloat16']:.4f} "
-            f"(of 989 TFLOP/s) peak_memory={peak / 2**30:.2f} GiB")
+            f"(of 989 TFLOP/s){f32_share} peak_memory={peak / 2**30:.2f} GiB")
 
 
 def repeat_gate(torch, cfg, params, batch):
@@ -2284,6 +2335,18 @@ def attention_launches_by_dtype(torch):
         yield counts
 
 
+def attention_dtype_gate(torch, fn, dtype_name, n):
+    """``fn()`` launches each attention kernel ``n`` times, all in
+    ``dtype_name``, forward and backward; returns ``fn``'s result."""
+    with attention_launches_by_dtype(torch) as by_dtype:
+        out = fn()
+    print(f"  attention launches by dtype: {by_dtype}")
+    want = {dtype_name: n}
+    check(by_dtype == {"flash_attention": want, "flash_attention_bwd": want},
+          f"expected every attention in {dtype_name}, forward and backward: {by_dtype}")
+    return out
+
+
 def serve_and_train_seamless(torch, np, dev):
     """Phase 13.  Returns the serving (prefill and decode) and training
     runs' launches and device us of each kernel."""
@@ -2353,12 +2416,8 @@ def serve_and_train_seamless(torch, np, dev):
         state, metrics = step_fn(state, batch)
         metrics["loss"].item()
 
-    with attention_launches_by_dtype(torch) as by_dtype:
-        one_step()
-    print(f"  attention launches by dtype in one training step: {by_dtype}")
-    want = {"bfloat16": n_attn}
-    check(by_dtype == {"flash_attention": want, "flash_attention_bwd": want},
-          "expected every attention in bf16, forward and backward")
+    print("  one training step:")
+    attention_dtype_gate(torch, one_step, "bfloat16", n_attn)
     served = profile_steps(torch, one_step, f"training step ({Bt} x {S} tokens)",
                            n=TRAIN_PROFILE_STEPS)
     del state
@@ -2366,6 +2425,96 @@ def serve_and_train_seamless(torch, np, dev):
     return {"prefill": {"launches": run["prefill"], "served": prefilled},
             "decode": {"launches": run["decode"], "served": run["served"]},
             "train": {"launches": trained["launches"], "served": served}}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: lidc-100m (examples/train_100m.py) trained in f32
+# ---------------------------------------------------------------------------
+
+def lidc_100m_config():
+    """examples/train_100m.py's CONFIG_100M as the port's ArchConfig."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**LIDC_100M)
+
+
+def f32_gradient_gate(torch, dev, cfg, seq):
+    """The gate batch (GATE_BATCH x ``seq``) through the kernel path (each
+    attention kernel launched once a layer, in f32), then twice more with
+    loss and gradients bit-equal (``repeat_gate``), and through the plain
+    path (``ops.attention`` patched to ``ref.attention_ref``), both f32 on
+    the card: the loss and every gradient within LIDC_GRAD_TOL of that
+    tensor's largest value (the loss: of its size)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import bundle_for
+    params = bundle_for(cfg).init(cfg, 0, device=dev).requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(SyntheticLM(cfg, GATE_BATCH, seq, seed=7)).items()}
+    reset_launches()
+    print("  the gate batch on the kernel path:")
+    loss_k, grads_k = attention_dtype_gate(
+        torch, lambda: loss_and_grads(torch, cfg, params, batch), "float32", cfg.n_layers)
+    launched = launches_now()
+    per_layer = {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    check(all(launched[name] == per_layer.get(name, 0) for name in launched),
+          f"kernel path launches {launched}, expected {per_layer}")
+    repeat_gate(torch, cfg, params, batch)
+    launched = launches_now()
+    with mock.patch.object(ops, "attention", ref.attention_ref):
+        loss_p, grads_p = loss_and_grads(torch, cfg, params, batch)
+    check(launches_now() == launched, "a kernel launched on the plain path")
+    errs = {"loss": abs(loss_k - loss_p) / abs(loss_p)}
+    for (name, _), gk, gp in zip(params.named_parameters(), grads_k, grads_p):
+        errs[name] = float((gk - gp).abs().max() / gp.abs().max())
+    top = max(errs, key=errs.get)
+    print(f"  gradient gate (batch {GATE_BATCH} x {seq}, f32): loss kernel {loss_k:.7f}, plain "
+          f"{loss_p:.7f}; over the loss and {len(grads_k)} gradients the largest max |d| / "
+          f"max |plain| {errs[top]:.3e} ({top}; limit {LIDC_GRAD_TOL})")
+    for name in sorted(errs, key=errs.get, reverse=True)[:5]:
+        print(f"    {name}: {errs[name]:.3e}")
+    check(all(e <= LIDC_GRAD_TOL for e in errs.values()),
+          f"the kernel path's {top} is off the plain path's: {errs[top]}")
+    del params, grads_k, grads_p
+
+
+def train_lidc_100m(torch, np, dev):
+    """Phase 14.  Returns the run's kernel launches and the profiled steps'
+    device us per step of each kernel."""
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import param_count
+    from repro_torch.train.step import make_train_step
+
+    gc.collect()                  # phase 13's lake
+    cfg = lidc_100m_config()
+    B, S = LIDC_TRAIN_RUN[:2]
+    print(f"  on {card_line()}")
+    print(f"  {cfg.arch_id} ({cfg.source}): {param_count(cfg) / 1e6:.2f} M params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied embeddings, {cfg.dtype}; "
+          f"AdamW moments f32")
+    f32_gradient_gate(torch, dev, cfg, S)
+    torch.cuda.empty_cache()
+    per_step = {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    trained = train_and_replay(torch, np, dev, cfg, "phase14", LIDC_TRAIN_RUN, per_step)
+    print("  " + step_measures(torch, cfg, ShapeConfig("t", "train", S, B), trained["step_s"],
+                               trained["peak"], f32=True))
+    state, batch = trained.pop("state"), trained["batch"]
+    step_fn = make_train_step(cfg, trained["optimizer"], remat=LIDC_TRAIN_RUN[-1])
+
+    def one_step():
+        nonlocal state
+        state, metrics = step_fn(state, batch)
+        metrics["loss"].item()
+
+    print("  one training step:")
+    attention_dtype_gate(torch, one_step, "float32", cfg.n_layers)
+    served = profile_steps(torch, one_step, f"training step ({B} x {S} tokens)",
+                           n=TRAIN_PROFILE_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": trained["launches"], "served": served}
 
 
 # ---------------------------------------------------------------------------
@@ -2471,7 +2620,8 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
                                                    enable_gqa=True), TOL["bfloat16"],
             served=served, **extra)
 
-    def bwd_row(model, B, S, H, K, hd, dtype_name="bfloat16", causal=True, **extra):
+    def bwd_row(model, B, S, H, K, hd, dtype_name="bfloat16", causal=True, launches=None,
+                **extra):
         dtype = getattr(torch, dtype_name)
         q, k, v, do = (randn((B, S, H, hd), dtype), randn((B, S, K, hd), dtype),
                        randn((B, S, K, hd), dtype), randn((B, S, H, hd), dtype))
@@ -2492,7 +2642,7 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
         add("flash_attention_bwd", "flash_attention_bwd_sm90.cu" if dtype == bf16
             else "flash_attention_bwd.cu", "src/repro/kernels/flash_attention.py:94",
             f"{model} training layer: B={B} S={S} H={H} K={K} hd={hd} {dtype_name} "
-            f"{'causal' if causal else 'non-causal'}", None,
+            f"{'causal' if causal else 'non-causal'}", launches,
             lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
             lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
             10.0 * B * H * hd * pairs,
@@ -2661,6 +2811,21 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
     B, S = SEAMLESS_TRAIN_RUN[:2]
     bwd_row(f"{e.arch_id} (phase 13)", B, S, e.n_heads, e.n_kv_heads, e.hd, causal=False,
             phase13="train")
+    # f32, A and A' on the CUDA cores: seamless's encoder layer (no path
+    # runs it in f32: phase 13 trains in bf16) and a lidc-100m training
+    # layer, whose launches and device us a step are phase 14's, filled in
+    # there
+    attention_row(e.arch_id, B, F_, e.n_heads, e.n_kv_heads, e.hd, 0, "encoder layer in f32",
+                  dtype_name="float32", causal=False, per="call (no path runs it in f32)")
+    bwd_row(f"{e.arch_id} encoder", B, F_, e.n_heads, e.n_kv_heads, e.hd,
+            dtype_name="float32", causal=False, per="call (no path runs it in f32)",
+            launches=0)
+    lidc = lidc_100m_config()
+    B, S = LIDC_TRAIN_RUN[:2]
+    attention_row(lidc.arch_id, B, S, lidc.n_heads, lidc.n_kv_heads, lidc.hd, None,
+                  "training layer (phase 14)", dtype_name="float32", phase14=True)
+    bwd_row(f"{lidc.arch_id} (phase 14)", B, S, lidc.n_heads, lidc.n_kv_heads, lidc.hd,
+            dtype_name="float32", phase14=True)
     for r in rows:
         print_row(r)
     return rows
@@ -2694,6 +2859,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.models import bundle_for, param_count
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     print(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2784,10 +2950,19 @@ def main() -> int:
                     r["launches"] = use["launches"][r["name"]]
                     r["served_us_per_step"] = use["served"][r["name"]]
                     print_row(r)
+
+        with Phase(f"phase 14: train {LIDC_100M['arch_id']} in f32 through run_training"):
+            lidc = train_lidc_100m(torch, np, dev)
+            for r in rows:
+                if r.get("phase14"):
+                    r["launches"] = lidc["launches"][r["name"]]
+                    r["served_us_per_step"] = lidc["served"][r["name"]]
+                    print_row(r)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-// Helpers shared by the attention kernels: element loads/stores in float
-// and 16-byte tile copies from device memory into padded shared memory.
+// Helpers shared by the attention kernels: element loads in float and
+// 16-byte tile copies from device memory into padded shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,12 +12,6 @@ constexpr float kNegInf = -1e30f;  // the oracles' mask value (not -inf)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared-memory rows are padded by 16 bytes: row starts stay 16-byte aligned
 // (vector stores, WMMA's 32-byte fragment alignment at 16-row multiples) and

@@ -53,226 +53,327 @@
 // (B, H, Sq) contiguous.  Training passes it; serving passes null and runs
 // exactly as before.
 
-// f32 path (phase-2 checks only, not served): the products run on the CUDA
-// cores in full f32, since TF32 would miss the f32 tolerance; one block of 4
-// warps per 64 query rows keeps the softmax state and the accumulator in
-// shared memory.
+// f32 design (the training path of f32 models, e.g. lidc-100m; phase 14):
+// the products run on the CUDA cores in exact f32 (TF32, or a 3xTF32 split
+// on the tensor cores, would not be the reference's f32 arithmetic), so the
+// bound is 4*B*H*hd*pairs FLOP at 67 TFLOP/s: 0.2564 ms for seamless's
+// encoder layer (B=4, S=1024, H=K=16, hd 64, no mask), 0.0802 ms for a
+// lidc-100m layer (B=4, S=1024, H=10, K=5, hd 64, causal).  A 16-byte
+// shared-memory load costs the SM about four of its load cycles while the
+// SM issues four warp FMAs a cycle, so a product keeps the FMA pipes busy
+// only at ~16 FMAs a 16-byte load: the design is built around that.
+//  - One block of 256 threads per 128 query rows: the 64 rows of a query
+//    tile of two heads of one GQA group (even groups; each K/V tile is
+//    loaded once for both heads), else 128 rows of one head.  The query
+//    tiles with the most keys launch first; the key loop stops at the
+//    causal diagonal.
+//  - Register micro-tiles.  At hd 64 a key tile holds 128 keys: thread
+//    (rg, kg) = (tid / 16, tid % 16) scores rows 8rg..8rg+7 against keys
+//    kg + 16c, 8 x 8, reading per 4 of hd 8 Q chunks (broadcasts) and 8 K
+//    chunks (rows padded 16 bytes: conflict-free); O += P V is split over
+//    the tile's two 64-key halves, each half's 128 threads holding 8 rows x
+//    8 columns (fma_tiles.cuh acc_xt_y), and the halves' sums are added at
+//    the end.  Both products: 16 FMAs a 16-byte load.  At hd 80 and 128
+//    (where 128-key tiles do not fit) a tile holds 64 keys: 8 x 4 scores
+//    (10.7 FMAs a load), O 8 rows x hd/16 columns (10 at hd 80, 16 at 128).
+//    On a causal tile whose upper 64 keys are all past the block's last
+//    row, only its lower half is scored and multiplied (exact: the rest is
+//    masked).
+//  - The online softmax: a row's max over the 16 threads of its half-warp
+//    by four xor-shuffles, exp2f of scores scaled by scale*log2(e), each
+//    thread's part of the row sum reduced once at the end; each row's
+//    rescale goes to the P V threads through shared memory, and O stays in
+//    registers for the whole key loop.  P goes through shared memory
+//    transposed, [key][row], so a thread's 8 rows of one key are two
+//    16-byte loads.
+//  - Q, K and V arrive by 16-byte cp.async: Q and K(0) first, then in each
+//    key tile V(t) and K(t+1) are in flight while S(t) and its softmax run
+//    (K in a two-stage ring, V in one stage).  Rows past Sq or Sk are
+//    zero-filled and masked as in the bf16 path.  Two barriers a key tile.
+// Registers (__launch_bounds__(256, 1), phase 1 prints them; 0 spill bytes
+// is a gate): 253 at hd 64, 168 at 80, 218 at 128.  Shared memory 202.5 KiB
+// at hd 64, 138.5 at 80, 198.5 at 128: one block, eight warps, per SM.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "fma_tiles.cuh"
 #include "sm90.cuh"
 #include "tma_host.cuh"
 
-using repro_torch::from_f32;
 using repro_torch::kNegInf;
-using repro_torch::Tile;
 using repro_torch::tma::make_map;
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
+constexpr int BQ = 64;   // query rows per block of the bf16 path
 constexpr int BK = 64;   // keys per tile
-constexpr int NT = 128;  // threads per block: four warps
+constexpr int NT = 128;  // threads per block of the bf16 path: four warps
 
-template <typename T, int HD>
-struct AttnSmem {
-  using TL = Tile<T, HD>;
-  static constexpr int kLdS = BK + 4;        // scores, f32
-  static constexpr int kLdP = BK + TL::kPad;  // probabilities, T
-  static constexpr int kLdO = HD + 4;        // accumulator, f32
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(T) * BQ * TL::kLd;
-  static constexpr size_t v = k + sizeof(T) * BK * TL::kLd;
-  static constexpr size_t s = v + sizeof(T) * BK * TL::kLd;
-  static constexpr size_t p = s + sizeof(float) * BQ * kLdS;
-  static constexpr size_t o = p + sizeof(T) * BQ * kLdP;
-  static constexpr size_t m = o + sizeof(float) * BQ * kLdO;
-  static constexpr size_t l = m + sizeof(float) * BQ;
-  static constexpr size_t corr = l + sizeof(float) * BQ;
-  static constexpr size_t bytes = corr + sizeof(float) * BQ;
+namespace f32 {
+
+namespace fma = repro_torch::fma;
+constexpr int ROWS = 128;       // query rows per block: one tile of two heads, or of one
+constexpr int NT = 256;         // threads per block
+constexpr int kLdP = ROWS + 4;  // P^T, [key][row]
+
+// Tiles of one head dim.  At hd 64 a key tile holds 128 keys, so each
+// thread's scores are 8 rows x 8 keys, and O += P V is split over the two
+// 64-key halves, each half's 128 threads holding 8 rows x 8 columns (the
+// halves' sums are added at the end, in that order): both products do 16
+// FMAs a 16-byte load.  At hd 80 and 128 (where 128-key tiles do not fit
+// shared memory) a key tile holds 64: scores 8 x 4 a thread, O 8 rows x
+// hd/16 columns, no split.
+template <int HD>
+struct Plan {
+  static constexpr int BK = HD == 64 ? 128 : 64;   // keys per tile
+  static constexpr int NKC = BK / 16;              // keys a thread scores: kg + 16c
+  static constexpr bool kSplit = BK == 128;        // P V over two key halves
+  static constexpr int G = kSplit ? 8 : 16;        // column groups of P V
+  using C = fma::Cols<HD, G>;
+  static constexpr int kLd = fma::Rows<HD>::kLd;
+  static constexpr size_t q = 0;                                   // [ROWS][kLd]
+  static constexpr size_t k = q + sizeof(float) * ROWS * kLd;      // 2 x [BK][kLd]
+  static constexpr size_t v = k + sizeof(float) * 2 * BK * kLd;    // [BK][kLd]
+  static constexpr size_t p = v + sizeof(float) * BK * kLd;        // [BK][kLdP]
+  static constexpr size_t corr = p + sizeof(float) * BK * kLdP;    // [ROWS]
+  static constexpr size_t bytes = corr + sizeof(float) * ROWS;
+  // the P V micro-tile of thread tid: rows 8x..8x+7, the columns of group
+  // y, keys [key0, key0 + kKeys)
+  __device__ __forceinline__ static int x(int tid) { return kSplit ? tid % 128 / 8 : tid / 16; }
+  __device__ __forceinline__ static int y(int tid) { return tid % G; }
+  __device__ __forceinline__ static int key0(int tid) { return kSplit ? 64 * (tid / 128) : 0; }
+  static constexpr int kKeys = kSplit ? 64 : BK;
 };
 
-// S[rows of warp] = Q K^T, f32 path: lane computes key columns lane and
-// lane+32 for the warp's 16 rows; Q reads are broadcasts.
+// pair: 2 where a block takes a 64-row query tile of two heads, 1 where it
+// takes 128 rows of one head.  blockIdx.x = head slot + H/pair * batch,
+// blockIdx.y counts the query tiles down.
 template <int HD>
-__device__ __forceinline__ void tile_scores(const float* Qs, const float* Ks, float* Ss,
-                                            int warp, int lane) {
-  using TL = Tile<float, HD>;
-  using SM = AttnSmem<float, HD>;
-  float acc[16][2];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
-  for (int d = 0; d < HD; d += 4) {
-    const float4 k0 = *reinterpret_cast<const float4*>(Ks + lane * TL::kLd + d);
-    const float4 k1 = *reinterpret_cast<const float4*>(Ks + (lane + 32) * TL::kLd + d);
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + (warp * 16 + r) * TL::kLd + d);
-      acc[r][0] = fmaf(qv.x, k0.x, fmaf(qv.y, k0.y, fmaf(qv.z, k0.z, fmaf(qv.w, k0.w, acc[r][0]))));
-      acc[r][1] = fmaf(qv.x, k1.x, fmaf(qv.y, k1.y, fmaf(qv.z, k1.z, fmaf(qv.w, k1.w, acc[r][1]))));
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    Ss[(warp * 16 + r) * SM::kLdS + lane] = acc[r][0];
-    Ss[(warp * 16 + r) * SM::kLdS + lane + 32] = acc[r][1];
-  }
-}
+__global__ void __launch_bounds__(NT, 1)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int group, int pair,
+                     long long qsb, long long qss, long long qsh, long long ksb,
+                     long long kss, long long ksh, long long vsb, long long vss,
+                     long long vsh, long long osb, long long oss, long long osh,
+                     float scale_log2, int causal) {
+  using P = Plan<HD>;
+  constexpr int LD = P::kLd;
+  constexpr int BK = P::BK;
+  constexpr int NKC = P::NKC;
+  using C = typename P::C;
+  constexpr int NO = C::N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem + P::q);
+  float* Ks = reinterpret_cast<float*>(smem + P::k);
+  float* Vs = reinterpret_cast<float*>(smem + P::v);
+  float* Pt = reinterpret_cast<float*>(smem + P::p);
+  float* corr_s = reinterpret_cast<float*>(smem + P::corr);
 
-// O[rows of warp] = O * corr + P V, f32 path: lane owns columns lane + 32i.
-template <int HD>
-__device__ __forceinline__ void tile_pv(const float* Ps, const float* Vs, float* Os,
-                                        const float* Cs, int warp, int lane) {
-  using TL = Tile<float, HD>;
-  using SM = AttnSmem<float, HD>;
-  constexpr int ND = (HD + 31) / 32;   // HD 80: the third column set is half used
-  // column lane + 32i, clamped for the lanes past HD (their sums are dropped)
-  int col[ND];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) col[i] = min(lane + 32 * i, HD - 1);
-  float acc[16][ND];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const float c = Cs[warp * 16 + r];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) acc[r][i] = Os[(warp * 16 + r) * SM::kLdO + col[i]] * c;
-  }
-  for (int j = 0; j < BK; ++j) {
-    float vv[ND];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) vv[i] = Vs[j * TL::kLd + col[i]];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float p = Ps[(warp * 16 + r) * SM::kLdP + j];
-#pragma unroll
-      for (int i = 0; i < ND; ++i) acc[r][i] = fmaf(p, vv[i], acc[r][i]);
-    }
-  }
-  __syncwarp();  // every lane has read the clamped columns it shares
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-      if (lane + 32 * i < HD) Os[(warp * 16 + r) * SM::kLdO + col[i]] = acc[r][i];
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                       int Sq, int Sk, int group,
-                       long long qsb, long long qss, long long qsh, long long ksb,
-                       long long kss, long long ksh, long long vsb, long long vss,
-                       long long vsh, long long osb, long long oss, long long osh,
-                       float scale, int causal) {
-  using SM = AttnSmem<T, HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + SM::q);
-  T* Ks = reinterpret_cast<T*>(smem + SM::k);
-  T* Vs = reinterpret_cast<T*>(smem + SM::v);
-  float* Ss = reinterpret_cast<float*>(smem + SM::s);
-  T* Ps = reinterpret_cast<T*>(smem + SM::p);
-  float* Os = reinterpret_cast<float*>(smem + SM::o);
-  float* Ms = reinterpret_cast<float*>(smem + SM::m);
-  float* Ls = reinterpret_cast<float*>(smem + SM::l);
-  float* Cs = reinterpret_cast<float*>(smem + SM::corr);
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / group;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int off = Sk - Sq;  // query row i sits at key position i + off
-
-  repro_torch::load_rows<T, HD, NT>(Qs, q + b * qsb + q0 * qss + h * qsh, qss, BQ,
-                                    min(BQ, Sq - q0));
-  for (int i = threadIdx.x; i < BQ * SM::kLdO; i += NT) Os[i] = 0.f;
-  if (threadIdx.x < BQ) {
-    Ms[threadIdx.x] = kNegInf;
-    Ls[threadIdx.x] = 0.f;
-  }
+  const int QR = ROWS / pair;            // query positions of the block
+  const int slots = H / pair;
+  const int h0 = (blockIdx.x % slots) * pair;
+  const int b = blockIdx.x / slots;
+  const int kh = h0 / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QR;
+  const int off = Sk - Sq;               // query row i sits at key position i + off
+  const int tid = threadIdx.x;
+  const int rg = tid / 16;               // scores: rows 8rg..8rg+7
+  const int kg = tid % 16;               // ... and keys kg + 16c
+  const int pos0 = q0 + 8 * rg % QR;     // the position of the first of those rows
+  const int px = P::x(tid), py = P::y(tid);   // P V: rows 8px.., columns of group py
+  const int prow = 8 * px;
   // keys [0, n_keys) are the only ones any row of this block can see
-  const int n_keys = causal ? min(Sk, min(q0 + BQ, Sq) + off) : Sk;
+  const int n_keys = causal ? min(Sk, min(q0 + QR, Sq) + off) : Sk;
   const int n_tiles = (n_keys + BK - 1) / BK;
-  __syncthreads();
+
+  auto load_kv = [&](float* dst, const float* src, long long sb, long long ss, long long sh,
+                     int k0) {
+    fma::cp_rows<HD, BK, NT>(dst, [&](int r) -> const float* {
+      return k0 + r < Sk ? src + b * sb + (k0 + r) * ss + kh * sh : nullptr;
+    }, src);
+  };
+  fma::cp_rows<HD, ROWS, NT>(Qs, [&](int r) -> const float* {
+    const int p = q0 + r % QR;
+    return p < Sq ? q + b * qsb + p * qss + (h0 + r / QR) * qsh : nullptr;
+  }, q);
+  load_kv(Ks, k, ksb, kss, ksh, 0);
+  fma::commit();
+
+  float acc[8][NO];
+  float m[8], l[8];  // running max (scaled by scale*log2 e) and this thread's part of the sum
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) acc[r][c] = 0.f;
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    repro_torch::load_rows<T, HD, NT>(Ks, k + b * ksb + k0 * kss + kh * ksh, kss, BK,
-                                      min(BK, Sk - k0));
-    repro_torch::load_rows<T, HD, NT>(Vs, v + b * vsb + k0 * vss + kh * vsh, vss, BK,
-                                      min(BK, Sk - k0));
-    __syncthreads();
-    tile_scores<HD>(Qs, Ks, Ss, warp, lane);
-    __syncwarp();
-    {
-      // online softmax: two lanes per row, 32 columns each
-      const int r = warp * 16 + lane / 2;
-      const int c0 = (lane & 1) * 32;
-      const int qpos = q0 + r + off;
-      float sv[32];
-      float mx = -INFINITY;
+    const float* Kt = Ks + (t & 1) * BK * LD;
+    fma::wait<0>();   // K(t), and at t = 0 Q
+    __syncthreads();  // ... seen by all; every thread is done with P V(t-1) and S(t-1)
+    load_kv(Vs, v, vsb, vss, vsh, k0);
+    fma::commit();
+    if (t + 1 < n_tiles) load_kv(Ks + ((t + 1) & 1) * BK * LD, k, ksb, kss, ksh, k0 + BK);
+    fma::commit();
+
+    // S = Q K^T: 8 rows x keys kg + 16c; where the tile's upper 64 keys are
+    // past every key the block sees (all masked), over its lower 64 alone
+    float s[8][NKC];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int kpos = k0 + c0 + j;
-        float x = Ss[r * SM::kLdS + c0 + j] * scale;
-        if (causal && kpos > qpos) x = kNegInf;
-        if (kpos >= Sk) x = -INFINITY;
-        sv[j] = x;
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < NKC; ++c) s[r][c] = 0.f;
+    auto scores = [&](auto n_c) {
+      constexpr int NC = decltype(n_c)::value;
+#pragma unroll 2
+      for (int d = 0; d < HD; d += 4) {
+        float4 kv[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          kv[c] = *reinterpret_cast<const float4*>(Kt + (kg + 16 * c) * LD + d);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(Qs + (8 * rg + r) * LD + d);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            s[r][c] = fmaf(qv.x, kv[c].x, s[r][c]);
+            s[r][c] = fmaf(qv.y, kv[c].y, s[r][c]);
+            s[r][c] = fmaf(qv.z, kv[c].z, s[r][c]);
+            s[r][c] = fmaf(qv.w, kv[c].w, s[r][c]);
+          }
+        }
+      }
+    };
+    const bool upper = !P::kSplit || k0 + 64 < n_keys;
+    if (upper)
+      scores(std::integral_constant<int, NKC>{});
+    else
+      scores(std::integral_constant<int, NKC / 2>{});
+
+    // online softmax; masks only on the tiles that reach past the
+    // diagonal or past Sk
+    const bool edge = (causal && k0 + BK - 1 > q0 + off) || k0 + BK > Sk;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int qpos = pos0 + r + off;
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < NKC; ++c) {
+        float x = s[r][c] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + kg + 16 * c;
+          if (causal && kpos > qpos) x = kNegInf;
+          if (kpos >= Sk) x = -INFINITY;
+        }
+        s[r][c] = x;
         mx = fmaxf(mx, x);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = Ms[r];
-      const float m_new = fmaxf(m_old, mx);
+#pragma unroll
+      for (int w = 1; w < 16; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = exp2f(m[r] - m_new);
+      m[r] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float p = expf(sv[j] - m_new);
-        Ps[r * SM::kLdP + c0 + j] = from_f32<T>(p);
-        sum += p;
+      for (int c = 0; c < NKC; ++c) {
+        s[r][c] = exp2f(s[r][c] - m_new);
+        sum += s[r][c];
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();  // both lanes of a row have read Ms[r]
-      if ((lane & 1) == 0) {
-        const float corr = expf(m_old - m_new);
-        Ms[r] = m_new;
-        Ls[r] = Ls[r] * corr + sum;
-        Cs[r] = corr;
-      }
+      l[r] = l[r] * corr + sum;
+      if (kg == 0) corr_s[8 * rg + r] = corr;
     }
-    __syncwarp();
-    tile_pv<HD>(Ps, Vs, Os, Cs, warp, lane);
-    __syncthreads();  // K/V tiles are overwritten next
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) {
+      float* row = Pt + (kg + 16 * c) * kLdP + 8 * rg;
+      *reinterpret_cast<float4*>(row) = make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+      *reinterpret_cast<float4*>(row + 4) = make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+    }
+    fma::wait<1>();   // V(t); K(t+1) may still be in flight
+    __syncthreads();  // P, the rows' rescales and V(t) seen by all
+
+    // O = O * corr + P V over this thread's keys
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float c = corr_s[prow + r];
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[r][i] *= c;
+    }
+    if (upper || P::key0(tid) == 0)   // the upper half's P is all zeros otherwise
+      fma::acc_xt_y<HD, P::G>(Pt, kLdP, Vs, acc, px, py, P::key0(tid), P::kKeys);
   }
 
-  for (int i = threadIdx.x; i < BQ * HD; i += NT) {
-    const int r = i / HD;
-    const int d = i % HD;
-    if (q0 + r < Sq)
-      o[b * osb + (q0 + r) * oss + h * osh + d] = from_f32<T>(Os[r * SM::kLdO + d] / Ls[r]);
+  // row sums; the log-sum-exp; 1 / sum for the P V threads (in corr_s)
+  float* inv_s = corr_s;
+  fma::wait<0>();
+  __syncthreads();  // every thread is done with the last tile's corr_s, K, V and P
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float sum = l[r];
+#pragma unroll
+    for (int w = 1; w < 16; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    if (kg != 0) continue;
+    inv_s[8 * rg + r] = 1.f / sum;
+    // m is the row's max scaled score in log2 units; the sum is of 2^(x - m)
+    const int pos = pos0 + r;
+    if (lse && pos < Sq)
+      lse[(static_cast<long long>(b) * H + h0 + 8 * rg / QR) * Sq + pos] =
+          (m[r] + log2f(sum)) * fma::kLn2;
   }
-  // Ms holds the max of the scaled scores, Ls the sum of exp(x - Ms)
-  if (lse && threadIdx.x < BQ && q0 + threadIdx.x < Sq)
-    lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + q0 + threadIdx.x] =
-        Ms[threadIdx.x] + logf(Ls[threadIdx.x]);
+  if constexpr (P::kSplit) {  // the second key half's sums, added to the first's
+    float* Os = Ks;           // [ROWS][kLd]
+    if (tid >= 128)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) C::store(Os + (prow + r) * LD, py, acc[r], 1.f);
+    __syncthreads();
+    if (tid >= 128) return;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float other[NO];
+      C::load(Os + (prow + r) * LD, py, other);
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[r][i] += other[i];
+    }
+  } else {
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int pos = q0 + (prow + r) % QR;
+    if (pos < Sq)
+      C::store(o + b * osb + pos * oss + (h0 + (prow + r) / QR) * osh, py, acc[r],
+               inv_s[prow + r]);
+  }
 }
 
-template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int Sq, int Sk, int H, int K, const long long* st, float scale, int causal,
-                   cudaStream_t stream) {
-  using SM = AttnSmem<T, HD>;
-  auto kernel = flash_attention_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(SM::bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, NT, SM::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Sq, Sk, H / K, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], scale, causal);
-  return cudaGetLastError();
+                   int Sq, int Sk, int H, int K, int hd, const long long* st, float scale,
+                   int causal, cudaStream_t stream) {
+  auto go = [&](auto kernel, size_t bytes) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    const int group = H / K;
+    const int pair = group % 2 == 0 ? 2 : 1;
+    dim3 grid(H / pair * B, (Sq + ROWS / pair - 1) / (ROWS / pair));
+    kernel<<<grid, NT, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H, group, pair,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+        scale * fma::kLog2e, causal);
+    return cudaGetLastError();
+  };
+  if (hd == 128) return go(attention_f32_kernel<128>, Plan<128>::bytes);
+  if (hd == 80) return go(attention_f32_kernel<80>, Plan<80>::bytes);
+  if (hd == 64) return go(attention_f32_kernel<64>, Plan<64>::bytes);
+  return cudaErrorInvalidValue;
 }
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16 path: one warpgroup per 64 query rows, wgmma for both products, the
@@ -531,11 +632,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return launch_bf16<80>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
   if (is_bf16 && hd == 64)
     return launch_bf16<64>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
-  if (!is_bf16 && hd == 128)
-    return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
-  if (!is_bf16 && hd == 80)
-    return launch<float, 80>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
-  if (!is_bf16 && hd == 64)
-    return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, strides, scale, causal, s);
+  if (!is_bf16)
+    return f32::launch(q, k, v, o, lse, B, Sq, Sk, H, K, hd, strides, scale, causal, s);
   return cudaErrorInvalidValue;
 }

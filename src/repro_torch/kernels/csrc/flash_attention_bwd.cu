@@ -24,23 +24,61 @@
 // Three launches, in both paths:
 //  1. bwd_dot_kernel: D = rowsum(dO * O) in f32, one warp per row.
 //  2. dK/dV per (64-key tile, KV head, batch): the block walks every query
-//     head of the group and every 64-row query tile that can see its keys,
+//     head of the group and every query tile that can see its keys,
 //     recomputes P and dS for the tile pair and accumulates dV and dK in
 //     registers.  The group's sum stays inside the block: no atomics, so a
 //     step is bit-repeatable.
-//  3. dQ per (64-row query tile, head, batch), over the key tiles its rows
-//     see (the forward's loop).
+//  3. dQ per query tile (bf16: 64 rows of one head; f32: below), over the
+//     key tiles its rows see (the forward's loop).
 // bf16 (the training path): passes 2 and 3 are the wgmma kernels of
 // flash_attention_bwd_sm90.cu (TMA rings, accumulators in registers).
-// f32 (phase-2 checks only): passes 2 and 3 below, one block of 256 threads
-// each, the products on the CUDA cores in full f32 (TF32 would miss the f32
-// tolerance): 4x4 register tiles for the 64x64 score-shaped products, 4 rows
-// x hd/16 columns for the hd-wide ones.  Rows are padded by 16 bytes, so
-// 16-byte loads of one column by neighbouring rows hit distinct banks.
+// f32 (the training path of f32 models, e.g. lidc-100m; phase 14): passes 2
+// and 3 below, the products on the CUDA cores in exact f32 (no TF32), so
+// the bound is the five products' FLOP at 67 TFLOP/s: 0.6411 ms for
+// seamless's encoder layer (B=4, S=1024, H=K=16, hd 64, no mask), 0.2005 ms
+// for a lidc-100m layer (H=10, K=5, causal).  The two passes recompute S
+// and dP (seven products where the gradient needs five): that is the price
+// of summing dK, dV and dQ without atomics, in a fixed order, so that a
+// step is bit-repeatable (the resume gates rely on it).  As in the forward
+// (csrc/flash_attention.cu), a product keeps the FMA pipes busy only at
+// ~16 FMAs a 16-byte shared-memory load, so the micro-tiles are as large
+// as registers and shared memory allow.  QS = 128 query rows at hd 64 and
+// 80, 64 at hd 128:
+//  - Both passes: S and dP in one fused register-tiled pass over hd
+//    (two_scores), 4 x 8 or 8 x 4 of each a thread, 10.7 FMAs a load (8 at
+//    hd 128); P = exp2(S*scale*log2 e - lse*log2 e) and dS = P (dP - D) go
+//    to shared memory once, transposed so that each product reads 16-byte
+//    rows; the products run 8 x 8 micro-tiles a thread (fma_tiles.cuh
+//    acc_xt_y, 16 FMAs a load).
+//  - dK/dV (pass 2), one block per (64-key tile, KV head, batch), QS query
+//    rows a step: S^T and dP^T for keys 4ti.., queries tj + 16c; then four
+//    groups of 64 threads accumulate dV = P^T dO and dK = dS^T Q, each over
+//    one half of the step's queries (two groups of 128 over all 64 at hd
+//    128), 8 keys x 8 columns a thread in registers; the halves' sums are
+//    added at the end.  The block walks the group's heads, then the query
+//    rows that see its keys, in that fixed order.  Q, dO, lse and D come by
+//    cp.async (16 bytes; 4 for lse and D, whose rows need not start on 16
+//    bytes) into one stage, reloaded after each step's products: two
+//    stages of 128 rows do not fit beside P and dS.
+//  - dQ (pass 3), one block per QS query rows (a 64-row tile of two heads
+//    of an even group, else QS rows of one head), over the key tiles they
+//    see: S and dP 8 x 4 a thread (rows 8rg.., keys kg + 16c; lse and D in
+//    registers), then dQ = dS K split over each tile's two 32-key halves,
+//    8 rows x 8 columns a thread, the halves' sums added at the end.  K and
+//    V come by cp.async through a two-stage ring.
+//  - D = rowsum(dO * O) stays a pass of its own (bwd_dot_kernel, shared with
+//    bf16): pass 2 runs before pass 3 and needs D for every query tile of
+//    the group, so folding it into pass 3 would come too late, and into
+//    pass 2 would recompute it once per key tile.
+// Registers (__launch_bounds__(256, 1); phase 1 prints them, 0 spill bytes
+// is a gate): pass 2 216 / 232 / 168 and pass 3 230 / 239 / 214 at hd 64 /
+// 80 / 128.  Shared memory (pass 2 171 / 195 / 166.5 KiB, pass 3 170 / 202
+// / 215.5 KiB) leaves one block, eight warps, per SM.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "fma_tiles.cuh"
 
 namespace repro_torch {
 // Passes 2 and 3 of the bf16 path (flash_attention_bwd_sm90.cu).
@@ -54,145 +92,12 @@ cudaError_t attention_bwd_sm90(const void* q, const void* k, const void* v, cons
 namespace {
 
 constexpr int BT = 64;   // rows per query tile and per key tile
-constexpr int NT = 256;  // threads per block of passes 2 and 3
-constexpr int kLdT = BT + 16;   // 64x64 f32 tiles (P, dS): rows 16 banks apart
 
 struct Str {  // element strides of a (B, S, heads, hd) tensor
   long long b, s, h;
 };
 
-template <int HD>
-struct Bwd {
-  static constexpr int kLd = HD + 4;             // f32 rows of hd, 16-byte padded
-  static constexpr int kTile = BT * kLd;         // floats in one hd-wide tile
-  static constexpr int ND = HD / 16;             // columns per thread, hd-wide products
-};
-
-// 64 rows of HD f32 elements into shared memory (row stride kLd); rows at or
-// past `valid` are zeros.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long rs,
-                                          int valid) {
-  constexpr int PER_ROW = HD / 4;
-  for (int i = threadIdx.x; i < BT * PER_ROW; i += NT) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 4;
-    int4 raw = make_int4(0, 0, 0, 0);
-    if (r < valid) raw = *reinterpret_cast<const int4*>(src + r * rs + c);
-    *reinterpret_cast<int4*>(dst + r * Bwd<HD>::kLd + c) = raw;
-  }
-}
-
-// S = A B^T and T = C D^T for 64-row tiles A, B, C, D of hd columns: thread
-// (ti, tj) = (tid / 16, tid % 16) computes rows ti + 16r and columns
-// tj + 16c, r, c < 4.
-template <int HD>
-__device__ __forceinline__ void two_scores(const float* A, const float* Bm, const float* C,
-                                           const float* Dm, float (&s)[4][4],
-                                           float (&t)[4][4], int ti, int tj) {
-  constexpr int LD = Bwd<HD>::kLd;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = t[r][c] = 0.f;
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[4], b[4], cc[4], dd[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[r] = *reinterpret_cast<const float4*>(A + (ti + 16 * r) * LD + d);
-      cc[r] = *reinterpret_cast<const float4*>(C + (ti + 16 * r) * LD + d);
-      b[r] = *reinterpret_cast<const float4*>(Bm + (tj + 16 * r) * LD + d);
-      dd[r] = *reinterpret_cast<const float4*>(Dm + (tj + 16 * r) * LD + d);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = fmaf(a[r].x, b[c].x, fmaf(a[r].y, b[c].y,
-                  fmaf(a[r].z, b[c].z, fmaf(a[r].w, b[c].w, s[r][c]))));
-        t[r][c] = fmaf(cc[r].x, dd[c].x, fmaf(cc[r].y, dd[c].y,
-                  fmaf(cc[r].z, dd[c].z, fmaf(cc[r].w, dd[c].w, t[r][c]))));
-      }
-  }
-}
-
-// P and dS of one (query tile, key tile) pair into shared memory, [i][j]
-// with row stride kLdT.  s = Q K^T and dp = dO V^T from two_scores; q0, k0
-// the tiles' first query row and key; rows past Sq and keys the forward
-// masked give 0.
-__device__ __forceinline__ void probs_and_dscores(const float (&s)[4][4], const float (&dp)[4][4],
-                                                  const float* lse_s, const float* D_s,
-                                                  float* Ps, float* dSs, int ti, int tj, int q0,
-                                                  int k0, int Sq, int Sk, int off, int causal,
-                                                  float scale) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = ti + 16 * r;
-    const int qpos = q0 + i + off;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = tj + 16 * c;
-      const int kpos = k0 + j;
-      const bool seen = q0 + i < Sq && kpos < Sk && !(causal && kpos > qpos);
-      const float p = seen ? expf(fmaf(s[r][c], scale, -lse_s[i])) : 0.f;
-      Ps[i * kLdT + j] = p;
-      dSs[i * kLdT + j] = p * (dp[r][c] - D_s[i]);
-    }
-  }
-}
-
-// acc[r][c] += sum over the 64 rows i of X[i][row] * Y[i][col] (X^T Y), with
-// X a 64x64 tile (stride kLdT), Y a 64-row hd tile; thread (tr, tc) owns
-// rows tr + 16r and columns tc + 16c.
-template <int HD>
-__device__ __forceinline__ void acc_xt_y(const float* X, const float* Y,
-                                         float (&acc)[4][Bwd<HD>::ND], int tr, int tc) {
-  constexpr int LD = Bwd<HD>::kLd;
-  for (int i = 0; i < BT; ++i) {
-    float x[4], y[Bwd<HD>::ND];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[r] = X[i * kLdT + tr + 16 * r];
-#pragma unroll
-    for (int c = 0; c < Bwd<HD>::ND; ++c) y[c] = Y[i * LD + tc + 16 * c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < Bwd<HD>::ND; ++c) acc[r][c] = fmaf(x[r], y[c], acc[r][c]);
-  }
-}
-
-// acc[r][c] += sum over the 64 columns j of X[row][j] * Y[j][col] (X Y).
-template <int HD>
-__device__ __forceinline__ void acc_x_y(const float* X, const float* Y,
-                                        float (&acc)[4][Bwd<HD>::ND], int tr, int tc) {
-  constexpr int LD = Bwd<HD>::kLd;
-  for (int j = 0; j < BT; ++j) {
-    float x[4], y[Bwd<HD>::ND];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[r] = X[(tr + 16 * r) * kLdT + j];
-#pragma unroll
-    for (int c = 0; c < Bwd<HD>::ND; ++c) y[c] = Y[j * LD + tc + 16 * c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < Bwd<HD>::ND; ++c) acc[r][c] = fmaf(x[r], y[c], acc[r][c]);
-  }
-}
-
-// 64 rows of an hd-wide f32 accumulator, times `mul`, to out (rows < valid).
-template <int HD>
-__device__ __forceinline__ void store_rows(float* out, long long rs,
-                                           const float (&acc)[4][Bwd<HD>::ND], int tr, int tc,
-                                           int valid, float mul) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = tr + 16 * r;
-    if (row >= valid) continue;
-#pragma unroll
-    for (int c = 0; c < Bwd<HD>::ND; ++c)
-      out[row * rs + tc + 16 * c] = acc[r][c] * mul;
-  }
-}
+Str str3(const long long* st) { return Str{st[0], st[1], st[2]}; }
 
 // Pass 1: D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d], one warp a row.
 template <typename T>
@@ -215,31 +120,117 @@ bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __res
   if (lane == 0) D[row] = sum;
 }
 
+namespace f32 {
+
+namespace fma = repro_torch::fma;
+constexpr int NT = 256;   // threads per block of passes 2 and 3
+
+// QS query rows per step of pass 2 and per block of pass 3: 128 where they
+// fit shared memory (hd 64, 80), else 64.
+template <int HD>
+constexpr int kQS = HD == 128 ? 64 : 128;
+
+// The S and dP of a tile pair, fused over hd: s[r][c] = A[NA ti + r] .
+// B[tj + 16c] and t[r][c] = C[NA ti + r] . Dm[tj + 16c], for tiles A, C of
+// 16 NA rows and B, Dm of 16 NB rows, hd columns each.  Per 4 of hd a thread
+// loads 2 (NA + NB) 16-byte chunks for 8 NA NB FMAs, holding the smaller of
+// the two sets in registers while it streams the other.  (A, B, C, Dm) =
+// (Q, K, dO, V) in pass 3; (K, Q, V, dO) in pass 2, which so computes S^T
+// and dP^T.  The sum over hd runs in the forward's order.
+template <int HD, int NA, int NB>
+__device__ __forceinline__ void two_scores(const float* A, const float* Bm, const float* C,
+                                           const float* Dm, float (&s)[NA][NB],
+                                           float (&t)[NA][NB], int ti, int tj) {
+  constexpr int LD = fma::Rows<HD>::kLd;
+  constexpr bool kHoldA = NA <= NB;
+  constexpr int NH = kHoldA ? NA : NB;   // the chunks held
+  constexpr int NS = kHoldA ? NB : NA;   // the chunks streamed
+#pragma unroll
+  for (int r = 0; r < NA; ++r)
+#pragma unroll
+    for (int c = 0; c < NB; ++c) s[r][c] = t[r][c] = 0.f;
+  auto fma4 = [](float& acc, const float4& a, const float4& b) {
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+    acc = fmaf(a.z, b.z, acc);
+    acc = fmaf(a.w, b.w, acc);
+  };
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 h1[NH], h2[NH];
+#pragma unroll
+    for (int u = 0; u < NH; ++u) {
+      const int row = kHoldA ? NA * ti + u : tj + 16 * u;
+      h1[u] = *reinterpret_cast<const float4*>((kHoldA ? A : Bm) + row * LD + d);
+      h2[u] = *reinterpret_cast<const float4*>((kHoldA ? C : Dm) + row * LD + d);
+    }
+#pragma unroll
+    for (int w = 0; w < NS; ++w) {
+      const int row = kHoldA ? tj + 16 * w : NA * ti + w;
+      const float4 s1 = *reinterpret_cast<const float4*>((kHoldA ? Bm : A) + row * LD + d);
+      const float4 s2 = *reinterpret_cast<const float4*>((kHoldA ? Dm : C) + row * LD + d);
+#pragma unroll
+      for (int u = 0; u < NH; ++u) {
+        if constexpr (kHoldA) {
+          fma4(s[u][w], h1[u], s1);
+          fma4(t[u][w], h2[u], s2);
+        } else {
+          fma4(s[w][u], h1[u], s1);
+          fma4(t[w][u], h2[u], s2);
+        }
+      }
+    }
+  }
+}
+
+// P and dS of one score element: s the raw score, dp = dO . V, lse2 the
+// row's log-sum-exp in log2 units, d its D; seen false where the forward
+// masked (causal, past Sk) or past Sq: P = dS = 0.
+__device__ __forceinline__ void prob_and_dscore(float s, float dp, float lse2, float d,
+                                                bool seen, float scale_log2, float& p,
+                                                float& ds) {
+  p = seen ? exp2f(fmaf(s, scale_log2, -lse2)) : 0.f;
+  ds = p * (dp - d);
+}
+
 template <int HD>
 struct DkdvSmem {
-  static constexpr size_t k = 0;
-  static constexpr size_t v = k + sizeof(float) * Bwd<HD>::kTile;
-  static constexpr size_t q = v + sizeof(float) * Bwd<HD>::kTile;
-  static constexpr size_t dout = q + sizeof(float) * Bwd<HD>::kTile;
-  static constexpr size_t p = dout + sizeof(float) * Bwd<HD>::kTile;
-  static constexpr size_t ds = p + sizeof(float) * BT * kLdT;
-  static constexpr size_t lse = ds + sizeof(float) * BT * kLdT;
-  static constexpr size_t d = lse + sizeof(float) * BT;
-  static constexpr size_t bytes = d + sizeof(float) * BT;
+  static constexpr int QS = kQS<HD>;
+  static constexpr int kLdT = BT + 4;                          // P, dS: [query][key]
+  static constexpr size_t kRow = sizeof(float) * fma::Rows<HD>::kLd;
+  static constexpr size_t k = 0;                               // [BT][kLd]
+  static constexpr size_t v = k + BT * kRow;
+  static constexpr size_t q = v + BT * kRow;                   // [QS][kLd]
+  static constexpr size_t dout = q + QS * kRow;
+  static constexpr size_t p = dout + QS * kRow;                // [QS][kLdT]
+  static constexpr size_t ds = p + sizeof(float) * QS * kLdT;
+  static constexpr size_t lse = ds + sizeof(float) * QS * kLdT;
+  static constexpr size_t d = lse + sizeof(float) * QS;
+  static constexpr size_t bytes = d + sizeof(float) * QS;
 };
 
 // Pass 2: dK and dV of one 64-key tile of one KV head, summed over the
-// group's query heads and every query tile that sees the keys.
+// group's query heads and every query row that sees the keys, QS rows a
+// step.
 template <int HD>
 __global__ void __launch_bounds__(NT, 1)
-bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ D,
-                float* __restrict__ dk, float* __restrict__ dv, int Sq,
-                int Sk, int H, int group, Str sq, Str sk, Str sv, Str sd, Str sdk, Str sdv,
-                float scale, int causal) {
+bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ D,
+                    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
+                    int group, Str sq, Str sk, Str sv, Str sd, Str sdk, Str sdv,
+                    float scale_log2, float scale, int causal) {
   using SM = DkdvSmem<HD>;
-  constexpr int ND = Bwd<HD>::ND;
+  constexpr int QS = SM::QS;
+  constexpr int LD = fma::Rows<HD>::kLd;
+  constexpr int kLdT = SM::kLdT;
+  // the products: NR threads groups, dV or dK over one of NR / 2 parts of a
+  // step's queries; each thread 8 keys x the columns of its group
+  constexpr int NR = QS == 128 ? 4 : 2;
+  constexpr int TPR = NT / NR;               // threads a group
+  constexpr int G = TPR / 8;                 // column groups (8 groups of 8 keys)
+  constexpr int QPART = QS / (NR / 2);       // queries a part: 64
+  using C = fma::Cols<HD, G>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem + SM::k);
   float* Vs = reinterpret_cast<float*>(smem + SM::v);
@@ -254,155 +245,309 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int off = Sk - Sq;          // query row i sits at key position i + off
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-  const int kvalid = min(BT, Sk - k0);
+  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;   // scores: keys 4ti.., queries tj + 16c
+  const int role = threadIdx.x / TPR;
+  const bool for_dk = role >= NR / 2;
+  const int part = role % (NR / 2);
+  const int x = threadIdx.x % TPR / G, y = threadIdx.x % G;  // products: keys 8x.., columns of y
 
-  load_tile<HD>(Ks, k + b * sk.b + k0 * sk.s + kh * sk.h, sk.s, kvalid);
-  load_tile<HD>(Vs, v + b * sv.b + k0 * sv.s + kh * sv.h, sv.s, kvalid);
+  // query rows i with i + off >= k0 are the only ones that see a key here;
+  // step p is rows q_first + QS (p % nq) .. of head kh * group + p / nq
+  const int q_first = causal ? max(0, k0 - off) / BT * BT : 0;
+  const int nq = Sq > q_first ? (Sq - q_first + QS - 1) / QS : 0;
+  const int n_steps = group * nq;
 
-  float acc_dk[4][ND], acc_dv[4][ND];
+  auto rows_of = [&](const float* src, Str st, int s0, int head, int valid) {
+    return [=](int r) -> const float* {
+      return s0 + r < valid ? src + b * st.b + (s0 + r) * st.s + head * st.h : nullptr;
+    };
+  };
+  auto issue = [&](int p) {
+    const int h = kh * group + p / nq;
+    const int q0 = q_first + p % nq * QS;
+    fma::cp_rows<HD, QS, NT>(Qs, rows_of(q, sq, q0, h, Sq), q);
+    fma::cp_rows<HD, QS, NT>(dOs, rows_of(dout, sd, q0, h, Sq), dout);
+    if (threadIdx.x < QS) {
+      const long long at = (static_cast<long long>(b) * H + h) * Sq + q0 + threadIdx.x;
+      const bool ok = q0 + static_cast<int>(threadIdx.x) < Sq;
+      fma::cp4(lse_s + threadIdx.x, ok ? lse + at : lse, ok);
+      fma::cp4(D_s + threadIdx.x, ok ? D + at : D, ok);
+    }
+  };
+
+  fma::cp_rows<HD, BT, NT>(Ks, rows_of(k, sk, k0, kh, Sk), k);
+  fma::cp_rows<HD, BT, NT>(Vs, rows_of(v, sv, k0, kh, Sk), v);
+  if (n_steps > 0) issue(0);
+  fma::commit();
+
+  float acc[8][C::N];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < ND; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
+    for (int c = 0; c < C::N; ++c) acc[r][c] = 0.f;
 
-  // query rows i with i + off >= k0 are the only ones that see a key here
-  const int first = causal ? max(0, k0 - off) / BT : 0;
-  const int n_qtiles = (Sq + BT - 1) / BT;
-  for (int g = 0; g < group; ++g) {
-    const int h = kh * group + g;
-    for (int qt = first; qt < n_qtiles; ++qt) {
-      const int q0 = qt * BT;
-      const int qvalid = min(BT, Sq - q0);
-      __syncthreads();  // the last pair's tiles are read
-      load_tile<HD>(Qs, q + b * sq.b + q0 * sq.s + h * sq.h, sq.s, qvalid);
-      load_tile<HD>(dOs, dout + b * sd.b + q0 * sd.s + h * sd.h, sd.s, qvalid);
-      if (threadIdx.x < BT) {
-        const long long at = (static_cast<long long>(b) * H + h) * Sq + q0 + threadIdx.x;
-        lse_s[threadIdx.x] = threadIdx.x < qvalid ? lse[at] : 0.f;
-        D_s[threadIdx.x] = threadIdx.x < qvalid ? D[at] : 0.f;
+  for (int p = 0; p < n_steps; ++p) {
+    const int q0 = q_first + p % nq * QS;
+    fma::wait<0>();   // this step's tiles (and at p = 0 K and V)
+    __syncthreads();  // ... seen by all
+
+    // S^T and dP^T: keys 4ti + r, queries tj + 16c
+    float s[4][QS / 16], dp[4][QS / 16];
+    two_scores<HD, 4, QS / 16>(Ks, Qs, Vs, dOs, s, dp, ti, tj);
+#pragma unroll
+    for (int c = 0; c < QS / 16; ++c) {
+      const int i = tj + 16 * c;
+      const int qpos = q0 + i + off;
+      const float lse2 = lse_s[i] * fma::kLog2e;
+      const float d = D_s[i];
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kpos = k0 + 4 * ti + r;
+        const bool seen = q0 + i < Sq && kpos < Sk && !(causal && kpos > qpos);
+        prob_and_dscore(s[r][c], dp[r][c], lse2, d, seen, scale_log2, pv[r], dsv[r]);
       }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      two_scores<HD>(Qs, Ks, dOs, Vs, s, dp, ti, tj);
-      probs_and_dscores(s, dp, lse_s, D_s, Ps, dSs, ti, tj, q0, k0, Sq, Sk, off, causal, scale);
-      __syncthreads();
-      acc_xt_y<HD>(Ps, dOs, acc_dv, ti, tj);
-      acc_xt_y<HD>(dSs, Qs, acc_dk, ti, tj);
+      *reinterpret_cast<float4*>(Ps + i * kLdT + 4 * ti) =
+          make_float4(pv[0], pv[1], pv[2], pv[3]);
+      *reinterpret_cast<float4*>(dSs + i * kLdT + 4 * ti) =
+          make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
+    }
+    __syncthreads();  // P and dS seen by all
+
+    // dV += P^T dO, dK += dS^T Q, over this thread's part of the queries
+    if (for_dk)
+      fma::acc_xt_y<HD, G>(dSs, kLdT, Qs, acc, x, y, part * QPART, QPART);
+    else
+      fma::acc_xt_y<HD, G>(Ps, kLdT, dOs, acc, x, y, part * QPART, QPART);
+    __syncthreads();  // every thread is done with the step's tiles
+    if (p + 1 < n_steps) issue(p + 1);
+    fma::commit();
+  }
+  fma::wait<0>();     // K and V, where no query sees the keys
+  __syncthreads();
+
+  // the parts' sums, added in a fixed order: part 1's through shared memory
+  if constexpr (NR == 4) {
+    float* sum_s = Qs + (for_dk ? BT * LD : 0);   // [BT][kLd] for dV, the next for dK
+    if (part == 1)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) C::store(sum_s + (8 * x + r) * LD, y, acc[r], 1.f);
+    __syncthreads();
+    if (part == 1) return;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float other[C::N];
+      C::load(sum_s + (8 * x + r) * LD, y, other);
+#pragma unroll
+      for (int c = 0; c < C::N; ++c) acc[r][c] += other[c];
     }
   }
-  store_rows<HD>(dk + b * sdk.b + k0 * sdk.s + kh * sdk.h, sdk.s, acc_dk, ti, tj, kvalid,
-                    scale);
-  store_rows<HD>(dv + b * sdv.b + k0 * sdv.s + kh * sdv.h, sdv.s, acc_dv, ti, tj, kvalid,
-                    1.f);
+  const Str so = for_dk ? sdk : sdv;
+  float* out = (for_dk ? dk : dv) + b * so.b + kh * so.h;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int key = k0 + 8 * x + r;
+    if (key < Sk) C::store(out + key * so.s, y, acc[r], for_dk ? scale : 1.f);
+  }
 }
 
 template <int HD>
 struct DqSmem {
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = q + sizeof(float) * Bwd<HD>::kTile;
-  static constexpr size_t k = dout + sizeof(float) * Bwd<HD>::kTile;
-  static constexpr size_t v = k + sizeof(float) * Bwd<HD>::kTile;
-  static constexpr size_t p = v + sizeof(float) * Bwd<HD>::kTile;
-  static constexpr size_t ds = p + sizeof(float) * BT * kLdT;
-  static constexpr size_t lse = ds + sizeof(float) * BT * kLdT;
-  static constexpr size_t d = lse + sizeof(float) * BT;
-  static constexpr size_t bytes = d + sizeof(float) * BT;
+  static constexpr int QS = kQS<HD>;
+  static constexpr int kLdS = QS + 4;                          // dS^T: [key][row]
+  static constexpr size_t kRow = sizeof(float) * fma::Rows<HD>::kLd;
+  static constexpr size_t q = 0;                               // [QS][kLd]
+  static constexpr size_t dout = q + QS * kRow;
+  static constexpr size_t k = dout + QS * kRow;                // 2 stages of [BT][kLd]
+  static constexpr size_t v = k + 2 * BT * kRow;               // 2 stages
+  static constexpr size_t ds = v + 2 * BT * kRow;              // [BT][kLdS]
+  static constexpr size_t lse = ds + sizeof(float) * BT * kLdS;
+  static constexpr size_t d = lse + sizeof(float) * QS;
+  static constexpr size_t bytes = d + sizeof(float) * QS;
 };
 
-// Pass 3: dQ of one 64-row query tile of one head, over the key tiles its
-// rows see.
+// Pass 3: dQ of QS query rows (a 64-row query tile of two heads of one
+// GQA group, or QS rows of one head), over the key tiles they see.
+// blockIdx.x = head slot + H/pair * batch, blockIdx.y counts the query
+// tiles down (the tiles with the most keys start first).
 template <int HD>
 __global__ void __launch_bounds__(NT, 1)
-bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ D,
-              float* __restrict__ dq, int Sq, int Sk, int H,
-              int group, Str sq, Str sk, Str sv, Str sd, Str sdq, float scale, int causal) {
+bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ D,
+                  float* __restrict__ dq, int Sq, int Sk, int H, int group, int pair, Str sq,
+                  Str sk, Str sv, Str sd, Str sdq, float scale_log2, float scale, int causal) {
   using SM = DqSmem<HD>;
-  constexpr int ND = Bwd<HD>::ND;
+  constexpr int QS = SM::QS;
+  constexpr int RPT = QS / 16;               // score rows a thread
+  constexpr int LD = fma::Rows<HD>::kLd;
+  constexpr int kLdS = SM::kLdS;
+  // dQ += dS K: two key halves of 128 threads, each thread 8 rows x the
+  // columns of its group
+  constexpr int G = 128 / (QS / 8);
+  using C = fma::Cols<HD, G>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + SM::q);
   float* dOs = reinterpret_cast<float*>(smem + SM::dout);
   float* Ks = reinterpret_cast<float*>(smem + SM::k);
   float* Vs = reinterpret_cast<float*>(smem + SM::v);
-  float* Ps = reinterpret_cast<float*>(smem + SM::p);
-  float* dSs = reinterpret_cast<float*>(smem + SM::ds);
+  float* dSt = reinterpret_cast<float*>(smem + SM::ds);
   float* lse_s = reinterpret_cast<float*>(smem + SM::lse);
   float* D_s = reinterpret_cast<float*>(smem + SM::d);
 
-  // the last query tiles see the most keys: they start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / group;
+  const int QR = QS / pair;                  // query positions of the block
+  const int slots = H / pair;
+  const int h0 = (blockIdx.x % slots) * pair;
+  const int b = blockIdx.x / slots;
+  const int kh = h0 / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QR;
   const int off = Sk - Sq;
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-  const int qvalid = min(BT, Sq - q0);
+  const int rg = threadIdx.x / 16, kg = threadIdx.x % 16;   // scores: rows RPT rg.., keys kg + 16c
+  const int half = threadIdx.x / 128;                       // dQ: keys 32 half..
+  const int x = threadIdx.x % 128 / G, y = threadIdx.x % G;  // ... rows 8x.., columns of y
 
-  load_tile<HD>(Qs, q + b * sq.b + q0 * sq.s + h * sq.h, sq.s, qvalid);
-  load_tile<HD>(dOs, dout + b * sd.b + q0 * sd.s + h * sd.h, sd.s, qvalid);
-  if (threadIdx.x < BT) {
-    const long long at = (static_cast<long long>(b) * H + h) * Sq + q0 + threadIdx.x;
-    lse_s[threadIdx.x] = threadIdx.x < qvalid ? lse[at] : 0.f;
-    D_s[threadIdx.x] = threadIdx.x < qvalid ? D[at] : 0.f;
+  auto row_src = [&](const float* src, Str st) {
+    return [=](int r) -> const float* {
+      const int pos = q0 + r % QR;
+      return pos < Sq ? src + b * st.b + pos * st.s + (h0 + r / QR) * st.h : nullptr;
+    };
+  };
+  auto issue_kv = [&](int t) {
+    const int k0 = t * BT;
+    auto key_src = [&](const float* src, Str st) {
+      return [=](int r) -> const float* {
+        return k0 + r < Sk ? src + b * st.b + (k0 + r) * st.s + kh * st.h : nullptr;
+      };
+    };
+    fma::cp_rows<HD, BT, NT>(Ks + (t & 1) * BT * LD, key_src(k, sk), k);
+    fma::cp_rows<HD, BT, NT>(Vs + (t & 1) * BT * LD, key_src(v, sv), v);
+  };
+  fma::cp_rows<HD, QS, NT>(Qs, row_src(q, sq), q);
+  fma::cp_rows<HD, QS, NT>(dOs, row_src(dout, sd), dout);
+  if (threadIdx.x < QS) {
+    const int pos = q0 + static_cast<int>(threadIdx.x) % QR;
+    const long long at =
+        (static_cast<long long>(b) * H + h0 + static_cast<int>(threadIdx.x) / QR) * Sq + pos;
+    fma::cp4(lse_s + threadIdx.x, pos < Sq ? lse + at : lse, pos < Sq);
+    fma::cp4(D_s + threadIdx.x, pos < Sq ? D + at : D, pos < Sq);
   }
-  float acc[4][ND];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < ND; ++c) acc[r][c] = 0.f;
+  issue_kv(0);
+  fma::commit();
 
-  // keys [0, n_keys) are the only ones any row of this tile sees
-  const int n_keys = causal ? min(Sk, q0 + qvalid + off) : Sk;
-  for (int k0 = 0; k0 < n_keys; k0 += BT) {
-    const int kvalid = min(BT, Sk - k0);
-    __syncthreads();  // the last tile's K and dS are read
-    load_tile<HD>(Ks, k + b * sk.b + k0 * sk.s + kh * sk.h, sk.s, kvalid);
-    load_tile<HD>(Vs, v + b * sv.b + k0 * sv.s + kh * sv.h, sv.s, kvalid);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    two_scores<HD>(Qs, Ks, dOs, Vs, s, dp, ti, tj);
-    probs_and_dscores(s, dp, lse_s, D_s, Ps, dSs, ti, tj, q0, k0, Sq, Sk, off, causal, scale);
-    __syncthreads();
-    acc_x_y<HD>(dSs, Ks, acc, ti, tj);
+  float acc[8][C::N];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < C::N; ++c) acc[r][c] = 0.f;
+  float lse2[RPT] = {}, dr[RPT] = {};   // this thread's score rows', read once Q's group landed
+
+  // keys [0, n_keys) are the only ones any row of this block sees
+  const int n_keys = causal ? min(Sk, min(q0 + QR, Sq) + off) : Sk;
+  const int n_tiles = (n_keys + BT - 1) / BT;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BT;
+    const float* Kt = Ks + (t & 1) * BT * LD;
+    const float* Vt = Vs + (t & 1) * BT * LD;
+    fma::wait<0>();   // K(t), V(t) (and at t = 0 Q, dO, lse, D)
+    __syncthreads();  // ... seen by all; every thread is done with tile t - 1
+    if (t + 1 < n_tiles) issue_kv(t + 1);
+    fma::commit();
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        lse2[r] = lse_s[RPT * rg + r] * fma::kLog2e;
+        dr[r] = D_s[RPT * rg + r];
+      }
+    }
+
+    // S and dP: rows RPT rg + r, keys kg + 16c
+    float s[RPT][4], dp[RPT][4];
+    two_scores<HD, RPT, 4>(Qs, Kt, dOs, Vt, s, dp, rg, kg);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kpos = k0 + kg + 16 * c;
+      float dsv[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int i = RPT * rg + r;
+        const int pos = q0 + i % QR;
+        const bool seen = pos < Sq && kpos < Sk && !(causal && kpos > pos + off);
+        float pv;
+        prob_and_dscore(s[r][c], dp[r][c], lse2[r], dr[r], seen, scale_log2, pv, dsv[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < RPT; r += 4)
+        *reinterpret_cast<float4*>(dSt + (kg + 16 * c) * kLdS + RPT * rg + r) =
+            make_float4(dsv[r], dsv[r + 1], dsv[r + 2], dsv[r + 3]);
+    }
+    __syncthreads();  // dS seen by all
+
+    fma::acc_xt_y<HD, G>(dSt, kLdS, Kt, acc, x, y, 32 * half, 32);   // dQ += dS K
   }
-  store_rows<HD>(dq + b * sdq.b + q0 * sdq.s + h * sdq.h, sdq.s, acc, ti, tj, qvalid, scale);
+  fma::wait<0>();
+  __syncthreads();    // every thread is done with the last tile
+
+  // the key halves' sums, added in a fixed order: the second's through
+  // shared memory
+  float* sum_s = Ks;  // [QS][kLd]
+  if (half == 1)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) C::store(sum_s + (8 * x + r) * LD, y, acc[r], 1.f);
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = 8 * x + r;
+    const int pos = q0 + i % QR;
+    if (pos >= Sq) continue;
+    float other[C::N];
+    C::load(sum_s + i * LD, y, other);
+#pragma unroll
+    for (int c = 0; c < C::N; ++c) acc[r][c] += other[c];
+    C::store(dq + b * sdq.b + pos * sdq.s + (h0 + i / QR) * sdq.h, y, acc[r], scale);
+  }
 }
 
-Str str3(const long long* st) { return Str{st[0], st[1], st[2]}; }
-
-// Passes 2 and 3 of the f32 path.  st: q, k, v, o, dO, dq, dk, dv strides
-// (b, s, heads), 24 in all.
+// Passes 2 and 3.  st: q, k, v, o, dO, dq, dk, dv strides (b, s, heads), 24
+// in all.
 template <int HD>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* D, void* dq, void* dk, void* dv, int B,
-                       int Sq, int Sk, int H, int K, const long long* st, float scale,
-                       int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* D, void* dq, void* dk, void* dv, int B, int Sq,
+                   int Sk, int H, int K, const long long* st, float scale, int causal,
+                   cudaStream_t stream) {
   const Str sq = str3(st), sk = str3(st + 3), sv = str3(st + 6), sd = str3(st + 12),
             sdq = str3(st + 15), sdk = str3(st + 18), sdv = str3(st + 21);
-  auto dkdv = bwd_dkdv_kernel<HD>;
+  const float scale_log2 = scale * fma::kLog2e;
+  const int group = H / K;
+  auto dkdv = bwd_dkdv_f32_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(DkdvSmem<HD>::bytes));
   if (err != cudaSuccess) return err;
   dkdv<<<dim3((Sk + BT - 1) / BT, K, B), NT, DkdvSmem<HD>::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, D,
-      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, H / K, sq, sk, sv, sd, sdk,
-      sdv, scale, causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, group, sq, sk, sv, sd, sdk,
+      sdv, scale_log2, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dqk = bwd_dq_kernel<HD>;
+  auto dqk = bwd_dq_f32_kernel<HD>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(DqSmem<HD>::bytes));
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((Sq + BT - 1) / BT, H, B), NT, DqSmem<HD>::bytes, stream>>>(
+  // QS rows a block: a query tile of two heads of a group where QS is 128
+  // and the group even, else QS rows of one head
+  const int pair = kQS<HD> == 128 && group % 2 == 0 ? 2 : 1;
+  const int rows = kQS<HD> / pair;
+  dqk<<<dim3(H / pair * B, (Sq + rows - 1) / rows), NT, DqSmem<HD>::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, D,
-      static_cast<float*>(dq), Sq, Sk, H, H / K, sq, sk, sv, sd, sdq, scale, causal);
+      static_cast<float*>(dq), Sq, Sk, H, group, pair, sq, sk, sv, sd, sdq, scale_log2, scale,
+      causal);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 // D, then passes 2 and 3: the FMA kernels for f32, the wgmma kernels for bf16.
 template <typename T, int HD>
@@ -417,8 +562,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (std::is_same<T, float>::value)
-    return launch_fma<HD>(q, k, v, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, K, st, scale,
-                          causal, stream);
+    return f32::launch<HD>(q, k, v, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, K, st, scale,
+                           causal, stream);
   else
     return repro_torch::attention_bwd_sm90(q, k, v, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, K,
                                            HD, st, scale, causal, stream);

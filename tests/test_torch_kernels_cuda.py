@@ -227,11 +227,45 @@ def test_attention_gradient_goes_through_the_backward_kernel(cuda_device, dtype)
 
 
 @pytest.mark.cuda
-def test_flash_attention_bwd_is_bit_repeatable(cuda_device):
-    inputs = _bwd_inputs(9, 2, 300, 300, 16, 8, 128, True, "bfloat16", cuda_device)
+@pytest.mark.parametrize("dtype,B,S,H,K,hd", [
+    ("bfloat16", 2, 300, 16, 8, 128),
+    ("float32", 2, 300, 16, 8, 128),
+    ("float32", 4, 1024, 10, 5, 64),      # lidc-100m's training layer (phase 14)
+])
+def test_flash_attention_bwd_is_bit_repeatable(cuda_device, dtype, B, S, H, K, hd):
+    inputs = _bwd_inputs(9, B, S, S, H, K, hd, True, dtype, cuda_device)
     first = flash_attention_bwd(*inputs)
     for g, h in zip(first, flash_attention_bwd(*inputs)):
         assert torch.equal(g, h)
+
+
+# f32 only: the edges of the f32 forward's 128-row blocks (128 positions of
+# one head at odd groups, the 64 positions of two heads at even groups) and
+# lidc-100m's training layer, forward and backward (chip_smoke.py
+# F32_EDGE_CASES)
+F32_EDGE_CASES = [  # (B, Sq, Sk, H, K, hd, causal)
+    *((1, S, S, 4, 4, hd, causal) for S in (127, 128, 129, 255, 256, 257)
+      for hd in (64, 80, 128) for causal in (True, False)),
+    *((1, S, S, 4, 2, 64, True) for S in (127, 128, 129, 255, 256, 257)),
+    *((1, Sq, Sk, 4, 4, 64, causal) for Sq, Sk in ((127, 257), (129, 256), (255, 257),
+                                                    (128, 129)) for causal in (True, False)),
+    (1, 257, 129, 4, 4, 64, False),
+    (2, 257, 257, 6, 2, 64, True),        # group 3: 128 positions of one head
+    (4, 1024, 1024, 10, 5, 64, True),     # lidc-100m's layer, group 2
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal", F32_EDGE_CASES)
+def test_f32_attention_kernels_at_the_block_edges(cuda_device, B, Sq, Sk, H, K, hd, causal):
+    q, k, v, o, lse, do = _bwd_inputs(17, B, Sq, Sk, H, K, hd, causal, "float32", cuda_device)
+    _assert_close(o, ref.attention_ref(q, k, v, causal=causal), "float32")
+    torch.testing.assert_close(lse, ref.attention_lse_ref(q, k, causal=causal),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for g, w in zip(got, ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)):
+        _assert_close(g, w, "float32")
+        _assert_grad_rows_close(g, w, "float32")
 
 
 @pytest.mark.cuda
