@@ -136,8 +136,8 @@
    of a step by dtype.  Phases 12 and 13 print ms and tokens a step, the
    model-FLOPs share, peak memory, the idle share and the leading device
    ops;
-14. trains lidc-100m, ``examples/train_100m.py``'s ``CONFIG_100M`` written
-   out field by field (10 layers, d_model 640, 10/5 heads of 64, tied
+14. trains lidc-100m, ``examples/train_100m.py``'s ``CONFIG_100M`` in the
+   port's copy (``repro_torch.examples.train_100m``; 10 layers, d_model 640, 10/5 heads of 64, tied
    embeddings, f32; 93.6 M params), weights from a seeded generator on the
    card, through ``run_training``: 4 x 1024 tokens, 10 steps,
    warmup-cosine to the example's 1e-3, remat "none", the step-5
@@ -149,7 +149,37 @@
    bit-equal and steps 6-10 replayed bit for bit.  Prints ms and tokens a
    step, the model-FLOPs share of 989 TFLOP/s and of the f32 peak (67
    TFLOP/s), peak memory, the idle share, the leading device ops and the
-   attention kernels' device us a step.
+   attention kernels' device us a step;
+15. runs ``python -m repro_torch.examples.train_100m`` (lidc-100m, f32, 4 x
+   1024 tokens, 10 steps, a checkpoint every 5) on a directory lake
+   (``DirLake``, the reference's on-disk layout) in a new process, kills it
+   with SIGKILL once its output shows step 5 done, and runs the same
+   command again, which must resume from step 5.  Gates: that process's
+   losses for steps 5-9 and its step-10 checkpoint bit-equal to
+   ``run_training`` here, resumed from a copy of the directory made right
+   after the kill, with 10 + 10 f32 attention launches a step; every
+   object file named in ``_index.json`` and every ``latest`` pointing at a
+   checkpoint that reads back whole.  Prints the checkpoint's write and
+   read time, the bytes on disk and each process's wall time;
+16. runs two ranks on the one card, each a process started with
+   ``torch.multiprocessing`` (spawn) on cuda:0: first a probe of NCCL with
+   two ranks on one device (it refuses: the group is then gloo, whose
+   support for CUDA tensors in each collective the ranks probe and print),
+   then (a) qwen3-moe-30b-a3b's MoE block at full width in f32 over 4 x
+   1024 tokens, expert parallel over a 1 x 2 ("data", "model") mesh (64
+   experts a rank): y, aux and the gradients of x, the router and the
+   rank's experts within 1e-4 of each tensor's largest value on the block
+   run on one rank, the same routing ids, one ``moe_router`` and one
+   ``moe_router_bwd`` launch a rank; (b) lidc-100m as two GPipe stages of 5
+   layers, 4 x 1024 tokens in 4 microbatches: the loss and every gradient
+   within 1e-4 of the sequential ``loss_fn`` on the card, 20 + 20 f32
+   attention launches a rank; (c) lidc-100m's train step with
+   ``compress_pods`` over 2 pods of 2 x 1024 tokens: the first step's
+   gradient within the two int8 roundings' bound of the plain all-reduce
+   sum, int8 handed to ``all_to_all`` and ``all_gather`` (the bytes printed
+   against f32's), 10 steps twice bit-equal, finite losses that fall.  The
+   wire is gloo's, staged through the host, so the phase gates
+   correctness and launches, not collective time.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
@@ -252,17 +282,26 @@ SEAMLESS_SERVE = ("seamless-m4t-large-v2", 4, 1024, 64, 32)
 SEAMLESS_TRAIN_RUN = (4, 1024, 10, 5, 3e-4, "none")
 
 # phase 14: examples/train_100m.py's CONFIG_100M, the repo's one end-to-end
-# training driver, written out field by field (the port imports nothing of
-# examples/ or of repro); trained as (batch, sequence, steps, checkpoint at,
-# the example's peak lr, remat).  Its gradient gate holds each tensor of the
-# kernel path to LIDC_GRAD_TOL of that tensor's largest value on the plain
-# path, both f32 on the card (phase 12's gate)
-LIDC_100M = {"arch_id": "lidc-100m", "family": "dense", "n_layers": 10, "d_model": 640,
-             "n_heads": 10, "n_kv_heads": 5, "d_ff": 2560, "vocab": 50_304,
-             "rope_theta": 1e4, "tie_embeddings": True, "dtype": "float32",
-             "source": "this repo (examples/train_100m.py)"}
+# training driver (the port keeps its copy of CONFIG_100M in
+# repro_torch/examples/train_100m.py); trained as (batch, sequence, steps,
+# checkpoint at, the example's peak lr, remat).  Its gradient gate holds each
+# tensor of the kernel path to LIDC_GRAD_TOL of that tensor's largest value on
+# the plain path, both f32 on the card (phase 12's gate)
 LIDC_TRAIN_RUN = (4, 1024, 10, 5, 1e-3, "none")
 LIDC_GRAD_TOL = 1e-4
+# phase 15: repro_torch.examples.train_100m killed and rerun on a directory
+# lake: (batch, sequence, steps, checkpoint every, the step whose line
+# triggers the kill, the seconds each process may take)
+LAKE_RUN = (4, 1024, 10, 5, 5, 300)
+# phase 16: two ranks on the one card.  EP: qwen3-moe-30b-a3b's MoE block
+# (full width, f32) over (batch, sequence) tokens, model axis 2; GPipe:
+# lidc-100m, 2 stages, (batch, sequence, microbatches); the compressed step:
+# lidc-100m, 2 pods of (rows, sequence) tokens, steps; the seconds the ranks
+# may take.  Gradients held to LIDC_GRAD_TOL of each tensor's largest value
+EP_RUN = (4, 1024)
+PP_RUN = (4, 1024, 4)
+POD_RUN = (2, 1024, 10)
+RANKS_TIMEOUT = 600
 
 
 class Phase:
@@ -2432,9 +2471,9 @@ def serve_and_train_seamless(torch, np, dev):
 # ---------------------------------------------------------------------------
 
 def lidc_100m_config():
-    """examples/train_100m.py's CONFIG_100M as the port's ArchConfig."""
-    from repro_torch.configs.base import ArchConfig
-    return ArchConfig(**LIDC_100M)
+    """The port's copy of examples/train_100m.py's CONFIG_100M."""
+    from repro_torch.examples.train_100m import CONFIG_100M
+    return CONFIG_100M
 
 
 def f32_gradient_gate(torch, dev, cfg, seq):
@@ -2515,6 +2554,526 @@ def train_lidc_100m(torch, np, dev):
     del state
     torch.cuda.empty_cache()
     return {"launches": trained["launches"], "served": served}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: a run that outlives its process (the directory lake)
+# ---------------------------------------------------------------------------
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir() if f.is_file())
+
+
+def lake_is_whole(lake_dir):
+    """Every object file is named in the index and every ``latest`` pointer
+    names a checkpoint whose arrays all read back.  Returns the pointers'
+    steps."""
+    from repro_torch.lake import DirLake, LakeName
+    index = json.loads((Path(lake_dir) / "_index.json").read_text())
+    files = {f.name for f in Path(lake_dir).glob("*.bin")}
+    check(files == set(index.values()),
+          f"{lake_dir}: {len(files)} object files, {len(set(index.values()))} in the index")
+    lake, steps = DirLake(str(lake_dir)), {}
+    for key in index:
+        if key.endswith("/latest"):
+            ptr = lake.get_json(LakeName.parse(key))
+            name = LakeName.parse(key[:-len("latest")] + f"step={ptr['step']}")
+            arrays = lake.get_arrays(name)
+            meta = (lake.get_json(name.append("manifest"))
+                    or lake.get_json(LakeName.parse(f"{name}#meta")))
+            check(arrays is not None and len(arrays) == meta["n"],
+                  f"{key} points at step {ptr['step']}, which does not read back whole")
+            steps[key] = ptr["step"]
+    return steps
+
+
+def lake_across_processes(torch, np, dev):
+    """Phase 15.  ``python -m repro_torch.examples.train_100m`` on a
+    directory lake, killed with SIGKILL once its output shows step 5 begun,
+    then rerun: it must resume from step 5.  The rerun's losses and its
+    step-10 checkpoint against ``run_training`` here, resumed from a copy of
+    the directory made right after the kill.  Returns the in-process run's
+    kernel launches."""
+    import gc
+    import shutil
+    import tempfile
+
+    import repro_torch.train.trainer as trainer
+    from repro_torch.examples.train_100m import CONFIG_100M, LR, RUN_NAME
+    from repro_torch.lake import DirLake, LakeName
+
+    B, S, steps, every, kill_at, timeout = LAKE_RUN
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="phase15-"))
+    lake_dir, copy_dir = work / "lake", work / "copy"
+    cmd = [sys.executable, "-u", "-m", "repro_torch.examples.train_100m", "--lake-dir",
+           str(lake_dir), "--steps", str(steps), "--ckpt-every", str(every), "--batch", str(B),
+           "--seq", str(S), "--device", dev.type]
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    step_line = re.compile(r"^step\s+(\d+)\s+loss\s+(\S+)$")
+    try:
+        import threading
+        t0 = time.perf_counter()
+        with open(work / "first.err", "w") as err:
+            first = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+                                     cwd=ROOT)
+        watchdog = threading.Timer(timeout, first.kill)
+        watchdog.start()
+        seen = []
+        try:
+            for line in first.stdout:
+                m = step_line.match(line.strip())
+                if m:
+                    seen.append(int(m.group(1)))
+                    if seen[-1] == kill_at:
+                        first.kill()     # SIGKILL
+                        break
+        finally:
+            first.kill()
+            first.wait(60)
+            watchdog.cancel()
+        t_first = time.perf_counter() - t0
+        check(seen and seen[-1] == kill_at, f"the first process printed steps {seen}, not step "
+              f"{kill_at}: {(work / 'first.err').read_text()[-2000:]}")
+        shutil.copytree(lake_dir, copy_dir)
+        killed = lake_is_whole(lake_dir)
+        ckpt = LakeName.parse("/lidc/data/ckpt").append(RUN_NAME)
+        print(f"  process 1: killed (exit {first.returncode}) after printing step {kill_at}, "
+              f"{t_first:.1f} s; latest {killed}; {dir_bytes(lake_dir) / 2**30:.3f} GiB on disk")
+        check(list(killed.values()) == [every] and not DirLake(str(lake_dir)).has(
+            ckpt.append(f"step={steps}")), f"after the kill: latest {killed}")
+
+        t0 = time.perf_counter()
+        second = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env,
+                                cwd=ROOT)
+        t_second = time.perf_counter() - t0
+        check(second.returncode == 0, f"the second process failed: {second.stderr[-2000:]}")
+        rerun = [step_line.match(l.strip()) for l in second.stdout.splitlines()]
+        rerun = [(int(m.group(1)), float(m.group(2))) for m in rerun if m]
+        print(f"  process 2: {t_second:.1f} s, steps {[s_ for s_, _ in rerun]}; "
+              f"{'resumed from step 5' if f'resumed from step {every}' in second.stdout else ''}")
+        check(f"(resumed from step {every} via named checkpoint)" in second.stdout,
+              "the second process did not say it resumed from step 5")
+
+        timings = {"save": [], "restore": []}
+
+        def timed(fn, what):
+            def call(*args, **kw):
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                timings[what].append(time.perf_counter() - t)
+                return out
+            return call
+
+        reset_launches()
+        t0 = time.perf_counter()
+        save, restore = (timed(trainer.save_checkpoint, "save"),
+                         timed(trainer.restore_checkpoint, "restore"))
+        with mock.patch.object(trainer, "save_checkpoint", save), \
+                mock.patch.object(trainer, "restore_checkpoint", restore):
+            res = trainer.run_training(CONFIG_100M, steps=steps, batch=B, seq=S,
+                                       lake=DirLake(str(copy_dir)), run_name=RUN_NAME,
+                                       ckpt_every=every, lr=LR, device=dev)
+        torch.cuda.synchronize()
+        t_here = time.perf_counter() - t0
+        launches = launches_now()
+        print(f"  here, from the copy: resumed from {res.resumed_from}, {t_here:.1f} s; "
+              f"launches {launches}")
+        print(f"  losses, process 2: {[l for _, l in rerun]}; here: {res.losses}")
+        check(res.resumed_from == every and [s_ for s_, _ in rerun] == list(range(every, steps)),
+              f"resumed from {res.resumed_from}; process 2's steps {rerun}")
+        check([np.float32(l) for _, l in rerun] == [np.float32(l) for l in res.losses],
+              "process 2's losses differ from the in-process resume's")
+        n = steps - every
+        want = {"flash_attention": n * CONFIG_100M.n_layers,
+                "flash_attention_bwd": n * CONFIG_100M.n_layers}
+        check(all(launches[k] == want.get(k, 0) for k in launches),
+              f"launches {launches}, expected {want}")
+        res.state = None
+        gc.collect()
+        a = DirLake(str(lake_dir)).get_arrays(ckpt.append(f"step={steps}"))
+        b = DirLake(str(copy_dir)).get_arrays(ckpt.append(f"step={steps}"))
+        moved = [k for k in b if not np.array_equal(a.get(k), b[k])]
+        print(f"  step-{steps} checkpoints: {len(b)} arrays, {len(moved)} differ")
+        check(a is not None and set(a) == set(b) and not moved,
+              f"the step-{steps} checkpoints differ: {moved[:5]}")
+        for d in (lake_dir, copy_dir):
+            check(list(lake_is_whole(d).values()) == [steps], f"{d}: latest is not {steps}")
+        print(f"  checkpoint write {timings['save']} s, read {timings['restore']} s "
+              f"({sum(v.nbytes for v in b.values()) / 2**30:.3f} GiB of arrays); "
+              f"{dir_bytes(lake_dir) / 2**30:.3f} GiB on disk (two checkpoints)")
+        del a, b
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the collectives, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+def _rank_report(tmp, rank, report) -> None:
+    import pickle
+    with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(report, f)
+
+
+def _nccl_probe_rank(rank, n, tmp):
+    """Two ranks on cuda:0 under NCCL: one all_reduce.  Reports its result or
+    the error NCCL raises."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                                world_size=n)
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        report = {"ok": bool(t[0].item() == n), "error": None}
+    except Exception as exc:      # the probe's finding, reported to the parent
+        report = {"ok": False, "error": f"{type(exc).__name__}: {exc}"[:600]}
+    _rank_report(tmp, rank, report)
+    os._exit(0)                   # no teardown of a communicator that may be broken
+
+
+def _gloo_takes(torch, dist, rank, n, dev, tmp):
+    """Which collectives gloo runs on CUDA tensors here: name -> True or the
+    error it raises, each also appended to ``tmp``/takes<rank>.txt as it
+    ends (a collective that aborts the process leaves the ones before it).
+    Send and recv are probed apart (``_p2p_probe_rank``)."""
+    out = {}
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(torch.ones(8, device=dev)),
+        "all_gather": lambda: dist.all_gather([torch.empty(8, device=dev) for _ in range(n)],
+                                              torch.ones(8, device=dev)),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(8 * n, device=dev), torch.ones(8 * n, device=dev)),
+        "all_to_all_single uneven": lambda: dist.all_to_all_single(   # 4 from rank 0 to 1
+            torch.empty(4 if rank else 0, device=dev), torch.ones(0 if rank else 4, device=dev),
+            [4, 0] if rank else [0, 0], [0, 0] if rank else [0, 4]),
+        "int8 all_gather": lambda: dist.all_gather(
+            [torch.empty(8, dtype=torch.int8, device=dev) for _ in range(n)],
+            torch.ones(8, dtype=torch.int8, device=dev)),
+    }
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = True
+        except Exception as exc:     # the probe's finding
+            out[name] = f"{type(exc).__name__}: {exc}"[:300]
+        with open(Path(tmp) / f"takes{rank}.txt", "a") as f:
+            f.write(f"{name}: {out[name]}\n")
+    return out
+
+
+def _p2p_probe_rank(rank, n, tmp):
+    """Two gloo ranks on cuda:0: isend and recv of a CUDA tensor.  Reports
+    what it got, if the process lives."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=n)
+    try:
+        got = torch.zeros(8, device="cuda")
+        req = dist.isend(torch.full((8,), float(rank + 1), device="cuda"), dst=1 - rank)
+        dist.recv(got, src=1 - rank)
+        req.wait()
+        report = {"ok": bool(got[0].item() == 2 - rank), "error": None}
+    except Exception as exc:      # the probe's finding
+        report = {"ok": False, "error": f"{type(exc).__name__}: {exc}"[:300]}
+    _rank_report(tmp, rank, report)
+    __import__("os")._exit(0)
+
+
+def _rel(torch, got, want):
+    return float((got - want).detach().abs().max() / want.detach().abs().max())
+
+
+def _ep_check(torch, rank, dev):
+    """qwen3-moe-30b-a3b's MoE block (full width, f32) expert parallel over
+    a 1 x 2 ("data", "model") mesh against the block on one rank."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import use_mesh, use_rules
+    from torch.distributed.device_mesh import init_device_mesh
+
+    B, S = EP_RUN
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    full = moe.init_moe(cfg, 0, device=dev).requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).requires_grad_(True)
+    gy = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    names = ("router", "w_gate", "w_up", "w_down")
+    routed = []
+    router = ops.moe_router
+
+    def recording(*args, **kw):
+        out = router(*args, **kw)
+        routed.append(out[1].detach().clone())
+        return out
+
+    def run(p):
+        with mock.patch.object(ops, "moe_router", recording):
+            y, aux = moe.moe_block(cfg, p, x)
+        grads = torch.autograd.grad(torch.sum(y * gy) + 3.0 * aux,
+                                    [x] + [getattr(p, k) for k in names])
+        torch.cuda.synchronize()
+        return y.detach(), aux.item(), grads
+
+    y1, aux1, g1 = run(full)
+    mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+    rules = rules_for(cfg, model_axis=2)
+    with use_rules(rules), use_mesh(mesh):
+        p = moe.local_experts(cfg, full)
+        reset_launches()
+        t0 = time.perf_counter()
+        y2, aux2, g2 = run(p)
+        t_sharded = time.perf_counter() - t0
+        launched = launches_now()
+    E_loc = cfg.n_experts // 2
+    want = [g1[0], g1[1]] + [g[rank * E_loc:(rank + 1) * E_loc] for g in g1[2:]]
+    return {"mode": "expert parallel" if rules["expert"] else "expert TP",
+            "experts": tuple(p.w_gate.shape), "y": _rel(torch, y2, y1),
+            "aux": abs(aux2 - aux1) / abs(aux1), "aux_values": (aux1, aux2),
+            "grads": dict(zip(("x",) + names, (_rel(torch, a, b) for a, b in zip(g2, want)))),
+            "ids_equal": bool(torch.equal(routed[0], routed[1])),
+            "launches": {k: v for k, v in launched.items() if v}, "s": t_sharded,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _pp_check(torch, dev):
+    """lidc-100m as 2 GPipe stages of 5 layers against the sequential
+    loss_fn on the card."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.examples.train_100m import CONFIG_100M as cfg
+    from repro_torch.models import bundle_for
+    from repro_torch.runtime.pipeline import make_pp_loss_fn, make_pp_mesh, stage_layers
+
+    B, S, n_micro = PP_RUN
+    params = bundle_for(cfg).init(cfg, 0, device=dev).requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(SyntheticLM(cfg, B, S, seed=7)).items()}
+    mesh = make_pp_mesh(2)
+    layers = stage_layers(cfg, mesh, 2)
+    named = [(name, p) for name, p in params.named_parameters()
+             if not name.startswith("blocks.") or int(name.split(".")[1]) in layers]
+    seq = bundle_for(cfg).loss_fn(cfg, params, batch)
+    want = torch.autograd.grad(seq, [p for _, p in named])
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = make_pp_loss_fn(cfg, mesh, n_stages=2, n_micro=n_micro)(params, batch)
+    got = torch.autograd.grad(loss, [p for _, p in named])
+    torch.cuda.synchronize()
+    errs = {name: _rel(torch, a, b) for (name, _), a, b in zip(named, got, want)}
+    top = max(errs, key=errs.get)
+    return {"layers": list(layers), "loss": (loss.item(), seq.item()),
+            "loss_err": abs(loss.item() - seq.item()) / abs(seq.item()),
+            "worst": (top, errs[top]), "n_grads": len(errs),
+            "launches": {k: v for k, v in launches_now().items() if v},
+            "s": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _pod_check(torch, dist, rank, dev):
+    """lidc-100m's train step with compress_pods over 2 pods: the first
+    step's gradient against the plain all-reduce sum, the int8 payload, and
+    the whole run twice."""
+    import numpy as np
+    from repro_torch.data import SyntheticLM
+    from repro_torch.examples.train_100m import CONFIG_100M as cfg
+    from repro_torch.examples.train_100m import LR
+    from repro_torch.models import bundle_for
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.optim.compress import compressed_psum_pod
+    from repro_torch.train.step import make_train_state, make_train_step
+    from torch.distributed.device_mesh import init_device_mesh
+
+    rows, S, steps = POD_RUN
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("pod",))
+    pod = mesh.get_group("pod")
+    stream = SyntheticLM(cfg, 2 * rows, S, seed=0)
+    batches = [{k: torch.from_numpy(v[rank * rows:(rank + 1) * rows]).to(dev)
+                for k, v in next(stream).items()} for _ in range(steps)]
+    optimizer = AdamW(lr=warmup_cosine(LR, max(steps // 20, 2), steps))
+
+    # the first step's gradient: compressed against the plain sum
+    state = make_train_state(cfg, 0, optimizer, device=dev)
+    leaves = list(state["params"].parameters())
+    grads = torch.autograd.grad(bundle_for(cfg).loss_fn(cfg, state["params"], batches[0]),
+                                leaves)
+    wire = []
+
+    def recording(fn):
+        def call(out, inp, *args, **kw):      # the tensor this rank hands over
+            wire.append((inp.dtype, inp.numel()))
+            return fn(out, inp, *args, **kw)
+        return call
+
+    with mock.patch.object(dist, "all_to_all_single", recording(dist.all_to_all_single)), \
+            mock.patch.object(dist, "all_gather", recording(dist.all_gather)):
+        comp = [compressed_psum_pod(g, pod) for g in grads]
+    worst = 0.0
+    for g, c in zip(grads, comp):
+        plain = g.clone()
+        dist.all_reduce(plain, group=pod)
+        scales = torch.empty(2, device=dev)
+        dist.all_gather(list(scales.view(2, 1)), (g.abs().max() / 127.0).reshape(1))
+        s2 = (plain.abs().max() + scales.sum() / 2) / 127.0
+        bound = scales.sum() / 2 + s2 / 2 + 1e-6 * plain.abs().max()
+        worst = max(worst, float((c - plain).abs().max() / bound))
+    payload = [(dtype, numel) for dtype, numel in wire if numel > 1]   # all but the scales
+    int8_bytes = sum(numel for dtype, numel in payload if dtype == torch.int8)
+    scale_bytes = sum(numel * 4 for dtype, numel in wire if numel == 1)
+    del state, grads, comp
+
+    def run():
+        state = make_train_state(cfg, 0, optimizer, device=dev)
+        step = make_train_step(cfg, optimizer, compress_pods=True, mesh=mesh)
+        losses = []
+        for b in batches:
+            state, metrics = step(state, b)
+            losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        return losses, state_fingerprints(torch, state)
+
+    t0 = time.perf_counter()
+    losses, fps = run()
+    t_run = time.perf_counter() - t0
+    again, fps_again = run()
+    return {"grad_bound_ratio": worst,
+            "payload_int8": all(dtype == torch.int8 for dtype, _ in payload),
+            "int8_bytes": int8_bytes, "f32_bytes": 4 * int8_bytes, "scale_bytes": scale_bytes,
+            "collectives_per_step": len(wire), "losses": losses,
+            "repeat_equal": losses == again and fps == fps_again,
+            "finite": bool(np.all(np.isfinite(losses))), "s_per_step": t_run / steps}
+
+
+def _phase16_rank(rank, n, tmp, backend):
+    """One of the two ranks of phase 16 on cuda:0."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=n)
+    report = {}
+    try:
+        report["takes"] = (_gloo_takes(torch, dist, rank, n, dev, tmp) if backend == "gloo"
+                           else {})
+        report["ep"] = _ep_check(torch, rank, dev)
+        torch.cuda.empty_cache()
+        report["pp"] = _pp_check(torch, dev)
+        torch.cuda.empty_cache()
+        report["pod"] = _pod_check(torch, dist, rank, dev)
+    except Exception:      # reported to the parent, which fails the phase
+        import traceback
+        report["error"] = traceback.format_exc()[-3000:]
+    _rank_report(tmp, rank, report)
+    __import__("os")._exit(0)     # no teardown: the parent has the report
+
+
+def spawn_ranks(fn, n, timeout, *args):
+    """``fn(rank, n, tmp, *args)`` on n processes (spawn); each writes its
+    report.  Returns the reports (None for a rank that wrote none), the exit
+    codes and ``tmp``; kills every process still running at ``timeout``."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    ctx = mp.start_processes(fn, args=(n, tmp) + args, nprocs=n, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + timeout
+    procs = ctx.processes
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 0.1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    reports = []
+    for r in range(n):
+        path = Path(tmp) / f"rank{r}.pkl"
+        reports.append(pickle.loads(path.read_bytes()) if path.exists() else None)
+    return reports, [p.exitcode for p in procs], tmp
+
+
+def collectives(torch):
+    """Phase 16.  Returns each rank's launches on the EP and GPipe paths."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    probe, codes, _ = spawn_ranks(_nccl_probe_rank, 2, 120)
+    nccl_ok = all(r is not None and r["ok"] for r in probe)
+    print(f"  NCCL, two ranks on cuda:0: {'takes them' if nccl_ok else 'refuses'} "
+          f"(exit codes {codes}; {[r and r['error'] for r in probe]}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    backend = "nccl" if nccl_ok else "gloo"
+    t0 = time.perf_counter()
+    reports, codes, tmp = spawn_ranks(_phase16_rank, 2, RANKS_TIMEOUT, backend)
+    print(f"  backend {backend}: two ranks on cuda:0, {time.perf_counter() - t0:.1f} s "
+          f"(exit codes {codes})")
+    for r, rep in enumerate(reports):
+        takes = Path(tmp) / f"takes{r}.txt"
+        check(rep is not None and "error" not in rep,
+              f"rank {r}: {rep and rep.get('error')} (exit code {codes[r]}; collectives "
+              f"probed: {takes.read_text() if takes.exists() else 'none'})")
+    if backend == "gloo":
+        print(f"  gloo on CUDA tensors: {reports[0]['takes']}")
+        t0 = time.perf_counter()
+        p2p, codes, _ = spawn_ranks(_p2p_probe_rank, 2, 120)
+        print(f"  gloo isend/recv of a CUDA tensor: reports {p2p}, exit codes {codes} "
+              f"(-6: the process aborted); {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for r, rep in enumerate(reports):
+        ep, pp, pod = rep["ep"], rep["pp"], rep["pod"]
+        print(f"  rank {r} EP ({ep['mode']}, experts {ep['experts']}): y {ep['y']:.3e}, aux "
+              f"{ep['aux']:.3e} {ep['aux_values']}, gradients {ep['grads']}; routing ids equal "
+              f"{ep['ids_equal']}; launches {ep['launches']}; {ep['s']:.2f} s, peak (both "
+              f"blocks) {ep['peak_gib']:.2f} GiB")
+        check(ep["y"] <= LIDC_GRAD_TOL and ep["aux"] <= LIDC_GRAD_TOL
+              and max(ep["grads"].values()) <= LIDC_GRAD_TOL, f"rank {r}: EP off the one rank")
+        check(ep["ids_equal"], f"rank {r}: EP routed other experts")
+        check(ep["launches"] == {"moe_router": 1, "moe_router_bwd": 1},
+              f"rank {r}: EP launches {ep['launches']}")
+        print(f"  rank {r} GPipe (layers {pp['layers']}): loss {pp['loss']}, off by "
+              f"{pp['loss_err']:.3e}; worst of {pp['n_grads']} gradients {pp['worst']}; "
+              f"launches {pp['launches']}; {pp['s']:.2f} s, peak {pp['peak_gib']:.2f} GiB")
+        per = PP_RUN[2] * len(pp["layers"])
+        check(pp["loss_err"] <= LIDC_GRAD_TOL and pp["worst"][1] <= LIDC_GRAD_TOL,
+              f"rank {r}: GPipe off the sequential loss_fn")
+        check(pp["launches"] == {"flash_attention": per, "flash_attention_bwd": per},
+              f"rank {r}: GPipe launches {pp['launches']}, expected {per} + {per}")
+        print(f"  rank {r} compressed step: first gradient at {pod['grad_bound_ratio']:.3f} of "
+              f"the two roundings' bound; int8 payload {pod['payload_int8']}, "
+              f"{pod['int8_bytes']} B handed over against {pod['f32_bytes']} B in f32, plus "
+              f"{pod['scale_bytes']} B of scales "
+              f"({pod['collectives_per_step']} collectives a step); losses {pod['losses']}; "
+              f"repeat bit-equal {pod['repeat_equal']}; {1e3 * pod['s_per_step']:.1f} ms a step")
+        check(pod["grad_bound_ratio"] <= 1.0, f"rank {r}: compressed gradient off its bound")
+        check(pod["payload_int8"], f"rank {r}: a payload that is not int8")
+        check(pod["repeat_equal"], f"rank {r}: the compressed run differs when run again")
+        check(pod["finite"] and pod["losses"][-1] < pod["losses"][0],
+              f"rank {r}: losses not finite and falling")
+        out[r] = {"ep": ep["launches"], "pp": pp["launches"]}
+    check(reports[0]["pod"]["losses"] == reports[1]["pod"]["losses"],
+          "the pods' averaged losses differ")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2951,13 +3510,27 @@ def main() -> int:
                     r["served_us_per_step"] = use["served"][r["name"]]
                     print_row(r)
 
-        with Phase(f"phase 14: train {LIDC_100M['arch_id']} in f32 through run_training"):
+        with Phase("phase 14: train lidc-100m in f32 through run_training"):
             lidc = train_lidc_100m(torch, np, dev)
             for r in rows:
                 if r.get("phase14"):
                     r["launches"] = lidc["launches"][r["name"]]
                     r["served_us_per_step"] = lidc["served"][r["name"]]
                     print_row(r)
+
+        with Phase("phase 15: lidc-100m trained on a directory lake, killed and resumed in a "
+                   "new process"):
+            print(f"  on {card_line()}")
+            lake15 = lake_across_processes(torch, np, dev)
+
+        with Phase("phase 16: expert-parallel MoE, GPipe and the compressed step on two ranks"):
+            ranks16 = collectives(torch)
+        for r in rows:      # launches on phases 15 and 16's paths, beside each row's own
+            if r.get("phase14"):
+                r["phase15_launches"] = lake15[r["name"]]
+                r["phase16_launches_per_rank"] = ranks16[0]["pp"].get(r["name"], 0)
+            if r["name"] in ("moe_router", "moe_router_bwd") and "decode" not in r["shape"]:
+                r["phase16_launches_per_rank"] = ranks16[0]["ep"].get(r["name"], 0)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,11 +1,10 @@
 """Train and serve steps over a model bundle, ported from
 ``repro/train/step.py``.
 
-The train step is loss -> gradients -> AdamW, with the reference's remat
-policies and microbatch accumulation in f32.  It runs eagerly: there is no
-``jit``, and the parameters and moments are updated in place.  The
-cross-pod gradient compression (``compress_pods``) needs a multi-device
-mesh and stays out.  The serve steps are the entry point through which the
+The train step is loss -> gradients -> (optionally compressed) reduce ->
+AdamW, with the reference's remat policies and microbatch accumulation in
+f32.  It runs eagerly: there is no ``jit``, and the parameters and moments
+are updated in place.  The serve steps are the entry point through which the
 JAX package serves the families its ``ServeEngine`` does not take (MoE,
 hybrid, xLSTM, the encoder-decoder).
 """
@@ -16,10 +15,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..collectives import pmean
 from ..configs.base import ArchConfig
 from ..models.model import bundle_for, model_module
 from ..models.transformer import dtype_of
 from ..optim.adamw import AdamW
+from ..optim.compress import compressed_psum_pod
 
 __all__ = ["make_train_state", "train_state_shape", "make_train_step", "make_prefill",
            "make_serve_step"]
@@ -54,11 +55,20 @@ def _split_microbatches(batch: Batch, n: int) -> List[Batch]:
 
 
 def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, remat: str = "none",
-                    microbatch: int = 1) -> Callable[[State, Batch], Tuple[State, Dict]]:
+                    microbatch: int = 1, compress_pods: bool = False,
+                    mesh=None) -> Callable[[State, Batch], Tuple[State, Dict]]:
     """``train_step(state, batch)`` -> (state, {"loss", "grad_norm", "lr"},
     0-dim tensors).  With ``microbatch`` > 1 the batch is split along its
     first dim and the gradients are summed in f32, then averaged, as the
-    reference's scan does."""
+    reference's scan does.
+
+    With ``compress_pods``, ``mesh`` (a ``DeviceMesh``) has a ``pod`` axis
+    and each of its ranks is one pod holding the replicated state and its
+    shard of the batch: the pod's gradients go through
+    ``optim.compress.compressed_psum_pod`` over ``pod`` and its loss is
+    averaged over ``pod``, then AdamW runs on every pod alike.  As in the
+    reference (``repro/train/step.py:72-95``) the gradients are the *sum*
+    over pods while the loss is their mean."""
     bundle = bundle_for(cfg)
 
     def loss_and_grads(params, batch: Batch):
@@ -81,8 +91,20 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, remat: str = "none",
         inv = 1.0 / microbatch
         return tot_loss * inv, [g * inv for g in tot_g]
 
+    if not compress_pods:
+        grad_fn = grads_of
+    else:
+        if mesh is None or "pod" not in mesh.mesh_dim_names:
+            raise ValueError("compress_pods needs a mesh with a 'pod' axis")
+        pod = mesh.get_group("pod")
+
+        def grad_fn(params, batch: Batch):
+            loss, grads = grads_of(params, batch)
+            return (pmean(loss, [pod]),
+                    [compressed_psum_pod(g, pod) for g in grads])
+
     def train_step(state: State, batch: Batch) -> Tuple[State, Dict[str, torch.Tensor]]:
-        loss, grads = grads_of(state["params"], batch)
+        loss, grads = grad_fn(state["params"], batch)
         opt, metrics = optimizer.update(grads, state["opt"], state["params"])
         return {"params": state["params"], "opt": opt}, {"loss": loss, **metrics}
 

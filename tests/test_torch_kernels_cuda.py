@@ -895,3 +895,103 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         ssd_state_scan_bwd(xs, None, xs, a[:, :2].contiguous(), False)
     with pytest.raises(ValueError, match="prefix must be a CUDA"):
         ssd_state_scan_bwd(xs.cpu(), None, xs.cpu(), a.cpu(), False)
+
+
+# ---------------------------------------------------------------------------
+# two ranks on the card: gloo processes on cuda:0 (NCCL takes one rank a
+# device), each held against the one-rank path on the card
+# ---------------------------------------------------------------------------
+
+def _rel_err(got, want):
+    return float((got - want).detach().abs().max() / want.detach().abs().max())
+
+
+def _ep_rank(rank, n):
+    """qwen3-moe smoke's MoE block, f32, expert parallel over a 1 x 2
+    ("data", "model") mesh, against the block on one rank: y, aux and the
+    gradients of x, the router and this rank's experts; one router launch
+    and one router backward launch on the sharded path."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import smoke_of
+    from repro_torch.kernels.moe_gating import moe_router, moe_router_bwd
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import use_mesh, use_rules
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(smoke_of("qwen3-moe-30b-a3b"), dtype="float32")
+    full = moe.init_moe(cfg, 0, device=dev).requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=dev).requires_grad_(True)
+    gy = torch.randn((2, 64, cfg.d_model), generator=gen, device=dev)
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def run(p):
+        y, aux = moe.moe_block(cfg, p, x)
+        grads = torch.autograd.grad(torch.sum(y * gy) + 3.0 * aux,
+                                    [x] + [getattr(p, k) for k in names])
+        return y, aux, grads
+
+    y1, aux1, g1 = run(full)
+    mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+    with use_rules(rules_for(cfg, model_axis=2, force_tp=True)), use_mesh(mesh):
+        p = moe.local_experts(cfg, full)
+        moe_router.launches = moe_router_bwd.launches = 0
+        y2, aux2, g2 = run(p)
+    torch.cuda.synchronize()
+    E_loc = cfg.n_experts // 2
+    want = [g1[0], g1[1]] + [g[rank * E_loc:(rank + 1) * E_loc] for g in g1[2:]]
+    return {"y": _rel_err(y2, y1), "aux": abs(aux2.item() - aux1.item()),
+            "grads": [_rel_err(a, b) for a, b in zip(g2, want)],
+            "launches": (moe_router.launches, moe_router_bwd.launches)}
+
+
+@pytest.mark.cuda
+def test_two_rank_expert_parallel_moe_block_matches_one_rank(cuda_device, tmp_path):
+    from torch_ranks import spawn
+    for got in spawn(_ep_rank, 2, tmp_path):
+        assert got["y"] <= 1e-4 and got["aux"] <= 1e-6, got
+        assert max(got["grads"]) <= 1e-4, got
+        assert got["launches"] == (1, 1), got
+
+
+def _pp_rank(rank, n):
+    """lidc-demo smoke in f32, widened to d_model 128 (heads of 64, which the
+    attention kernels take), as two GPipe stages of one layer, 2
+    microbatches, against the sequential loss_fn on the card: the loss and
+    this stage's gradients; one f32 attention launch and one backward
+    launch a microbatch."""
+    import dataclasses
+
+    from repro_torch.configs.base import smoke_of
+    from repro_torch.models import bundle_for
+    from repro_torch.runtime.pipeline import make_pp_loss_fn, make_pp_mesh, stage_layers
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(smoke_of("lidc-demo"), dtype="float32", d_model=128)
+    params = bundle_for(cfg).init(cfg, 0, device=dev).requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (4, 33), generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    mesh = make_pp_mesh(2)
+    layers = stage_layers(cfg, mesh, 2)
+    leaves = [p for name, p in params.named_parameters()
+              if not name.startswith("blocks.") or int(name.split(".")[1]) in layers]
+    seq = bundle_for(cfg).loss_fn(cfg, params, batch)
+    want = torch.autograd.grad(seq, leaves)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    loss = make_pp_loss_fn(cfg, mesh, n_stages=2, n_micro=2)(params, batch)
+    got = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return {"loss": abs(loss.item() - seq.item()) / seq.item(),
+            "grads": [_rel_err(a, b) for a, b in zip(got, want)],
+            "launches": (flash_attention.launches, flash_attention_bwd.launches)}
+
+
+@pytest.mark.cuda
+def test_two_rank_gpipe_matches_the_sequential_loss(cuda_device, tmp_path):
+    from torch_ranks import spawn
+    for got in spawn(_pp_rank, 2, tmp_path):
+        assert got["loss"] <= 1e-5 and max(got["grads"]) <= 1e-4, got
+        assert got["launches"] == (2, 2), got

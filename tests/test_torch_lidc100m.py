@@ -1,9 +1,10 @@
 """PyTorch port: lidc-100m, the config that ``examples/train_100m.py``
 trains in f32 and ``chip_smoke.py`` phase 14 trains on the card.
 
-``chip_smoke.py`` writes the config out field by field (the port imports
-nothing of ``examples/`` or of the JAX package); here it is held to the
-example's ``CONFIG_100M``, both loaded by path.  A narrowed copy (2 layers,
+The port keeps its own copy of the config in
+``repro_torch.examples.train_100m`` (it imports nothing of ``examples/`` or
+of the JAX package), and ``chip_smoke.py`` trains that copy; here it is held
+to the example's ``CONFIG_100M``, loaded by path.  A narrowed copy (2 layers,
 d_model 128, 2/1 heads of 64, d_ff 512, vocab 512, tied embeddings, f32)
 then goes through both packages on the CPU with the same weights
 (``interop.params_from_jax``) and batches: ``loss_fn`` and every gradient
@@ -27,6 +28,7 @@ from repro.datalake import DataLake
 from repro.models import bundle_for as jax_bundle
 from repro.models import param_count as jax_param_count
 from repro.train.trainer import run_training as jax_run_training
+from repro_torch.examples.train_100m import CONFIG_100M
 from repro_torch.interop import named_to_jax, params_from_jax
 from repro_torch.models import bundle_for, param_count
 from repro_torch.train.trainer import run_training
@@ -50,11 +52,12 @@ SMOKE = _load("chip_smoke_phase14", ROOT / "chip_smoke.py")   # stdlib only at i
 
 def _narrowed():
     return (dataclasses.replace(EXAMPLE.CONFIG_100M, **NARROW),
-            dataclasses.replace(SMOKE.lidc_100m_config(), **NARROW))
+            dataclasses.replace(CONFIG_100M, **NARROW))
 
 
 def test_phase_14_config_is_the_example_config_field_by_field():
-    want, got = EXAMPLE.CONFIG_100M, SMOKE.lidc_100m_config()
+    want, got = EXAMPLE.CONFIG_100M, CONFIG_100M
+    assert SMOKE.lidc_100m_config() is got
     assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
     for field in dataclasses.fields(want):
         assert getattr(got, field.name) == getattr(want, field.name), field.name

@@ -292,7 +292,10 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.launch.train, repro_torch.ckpt.checkpoint, "
             "repro_torch.data.pipeline, repro_torch.optim, repro_torch.lake, "
             "repro_torch.runtime, repro_torch.runtime.protocol, "
-            "repro_torch.runtime.executors, repro_torch.runtime.fleet; "
+            "repro_torch.runtime.executors, repro_torch.runtime.fleet, "
+            "repro_torch.runtime.pipeline, repro_torch.collectives, "
+            "repro_torch.models.sharding, repro_torch.launch.mesh, "
+            "repro_torch.optim.compress, repro_torch.examples.train_100m; "
             "bad = sorted(m for m, mod in sys.modules.items() if mod is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))); print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
