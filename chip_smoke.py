@@ -9,8 +9,11 @@
    (attention in bf16 and f32 at head dims 64, 80 and 128 with ragged
    lengths, query counts around the 64-row tile and strided views, and at
    seamless's group-1 shapes, causal and not, forward and backward; decode
-   at GQA groups 1-8, lengths at tile and span edges, one long slot, more
-   (slot, KV head) pairs than SMs and 0-dim lengths; the MoE router on logits with
+   at GQA groups 1-8, 12 (mistral-large's 96 / 8 heads) and 24 (two row
+   blocks), lengths at tile and span edges, one long slot, more
+   (slot, KV head) pairs than SMs and 0-dim lengths, each case also with
+   the log-sum-exps the sharded decode merges position shards by (the
+   output bit-equal, the lse against the plain one); the MoE router on logits with
    ties, ids compared exactly; the fused router (product, softmax, top-k)
    at the qwen3-moe shapes, ids compared up to near ties and exactly where
    router columns repeat; the SSD state scan with and without an initial
@@ -179,7 +182,14 @@
    sum, int8 handed to ``all_to_all`` and ``all_gather`` (the bytes printed
    against f32's), 10 steps twice bit-equal, finite losses that fall.  The
    wire is gloo's, staged through the host, so the phase gates
-   correctness and launches, not collective time.
+   correctness and launches, not collective time;
+17. serves mistral-large-123b at full width (96 query heads over 8 KV
+   heads of 128: GQA group 12, one pass of ``flash_decode`` over the cache
+   with all 16 rows of its MMA) and 2 of its 88 layers (~7 GB of bf16
+   weights) through ``make_prefill`` / ``make_serve_step``: 4 prompts of
+   300 tokens, 16 greedy steps (2 ``flash_decode`` launches a step), then
+   phase 4's teacher-forced bound; its device us per decode step fill
+   phase 7's group-12 row.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
@@ -253,6 +263,10 @@ EXEC_SERVE = (8, 32, 8, 2048)
 
 # phases 5 and 6: (arch, batch, prompt length, max_seq, greedy decode steps)
 HYBRID_RUN = ("zamba2-2.7b", 4, 700, 1024, 32)
+# phase 17: mistral-large-123b at full width, its depth cut to 2 of 88 layers
+# (~7 GB of bf16 weights; all 88 need ~246 GB): (arch, layers, batch, prompt,
+# max_seq, decode steps)
+MISTRAL_RUN = ("mistral-large-123b", 2, 4, 300, 1024, 16)
 MOE_RUN = ("qwen3-moe-30b-a3b", 4, 300, 512, 16)
 MOE_TEACHER_LAYERS = 4      # f32 at 48 layers would need ~122 GB
 
@@ -591,7 +605,19 @@ DECODE_CASES = [  # (B, Smax, H, K, hd, lengths[, "0-dim": one length as a 0-dim
     (4, 1024, 16, 16, 64, 1024, "0-dim"),
     (4, 1024, 16, 16, 64, [1, 33, 500, 1024]),
     (4, 64, 16, 16, 64, 33, "0-dim"),
+    # GQA groups above 8: mistral-large-123b's 96 query heads over 8 KV heads
+    # (group 12, phase 17), and group 24 (two row blocks of 16, each reading
+    # the cache)
+    (4, 1024, 96, 8, 128, [1, 300, 1000, 1024]),
+    (8, 2048, 96, 8, 128, 777),
+    (3, 700, 48, 2, 128, [5, 64, 700]),
+    (2, 300, 24, 1, 64, [1, 299]),
 ]
+
+# the decode kernel's log-sum-exps against ``ref.decode_lse_ref`` (atol =
+# rtol): f32 sums either way; in bf16 the kernel's scores come from bf16
+# products on the tensor cores, as the output's do
+LSE_TOL = 1e-3
 
 GATING_CASES = [  # (T, E, k, tied logits)
     (4, 128, 8, False),                   # qwen3-moe decode, 4 slots
@@ -674,6 +700,16 @@ def check_kernels(torch, dev):
                   f"row_rel_err={rel:.3e} (tol {rel_tol})")
             check(ok, f"flash_decode disagrees with decode_attention_ref: {err}")
             check(rel <= rel_tol, f"flash_decode rows off decode_attention_ref: {rel}")
+            # the same launch with the log-sum-exps (the sharded decode's
+            # merge over position shards): the output unchanged, the lse
+            # against the plain version's
+            out_l, lse = flash_decode(q, ck, cv, length, with_lse=True)
+            lerr, lok = max_err(lse, ref.decode_lse_ref(q, ck, length), LSE_TOL)
+            torch.cuda.synchronize()
+            print(f"    with_lse: output bit-equal {torch.equal(out_l, out)}, lse "
+                  f"max_abs_err={lerr:.3e} (tol {LSE_TOL})")
+            check(torch.equal(out_l, out), "flash_decode with_lse changed the output")
+            check(lok, f"flash_decode lse disagrees with decode_lse_ref: {lerr}")
     check_attention_bwd(torch, dev, gen)
     check_moe_gating(torch, dev, gen)
     check_moe_router(torch, dev, gen)
@@ -1266,6 +1302,30 @@ def serve_hybrid(torch, np, dev):
     run = serve_steps(torch, np, dev, cfg, params, B, S, max_seq, steps,
                       {"flash_attention": n_attn, "ssd_state_scan": cfg.n_layers},
                       {"flash_decode": n_attn})
+    print("  teacher-forced logits, kernel path vs plain path")
+    teacher_forced(torch, np, cfg, params)
+    del params
+    return run
+
+
+def serve_mistral(torch, np, dev):
+    """mistral-large-123b at full width and MISTRAL_RUN's depth through the
+    serve steps (``transformer.prefill`` and ``decode_step``): group 12 on
+    every decode launch; then the teacher-forced gap, as phase 4."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import bundle_for, param_count
+    arch, layers, B, S, max_seq, steps = MISTRAL_RUN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    t0 = time.perf_counter()
+    params = bundle_for(cfg).init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = param_count(cfg)
+    print(f"  {n / 1e9:.3f} B params ({2 * n / 2**30:.2f} GiB bf16), {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers, {cfg.n_heads} query heads over "
+          f"{cfg.n_kv_heads} KV heads (group {cfg.n_heads // cfg.n_kv_heads}) of {cfg.hd}, "
+          f"d_model {cfg.d_model}, init {time.perf_counter() - t0:.1f} s")
+    run = serve_steps(torch, np, dev, cfg, params, B, S, max_seq, steps,
+                      {"flash_attention": cfg.n_layers}, {"flash_decode": cfg.n_layers})
     print("  teacher-forced logits, kernel path vs plain path")
     teacher_forced(torch, np, cfg, params)
     del params
@@ -3338,6 +3398,13 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
                moe["served"]["moe_router"])
     gating_row(B * S, m.n_experts, m.top_k, moe["prefill"]["moe_gating"], "prefill")
     gating_row(B, m.n_experts, m.top_k, moe["decode"]["moe_gating"], "decode")
+    # mistral-large-123b (phase 17): one decode layer at group 12 (96 query
+    # heads over 8 KV heads); its launches and device us per step are phase
+    # 17's, filled in there
+    arch, _, B, S, max_seq, steps = MISTRAL_RUN
+    ml = get_config(arch)
+    decode_row(arch, B, max_seq, ml.n_heads, ml.n_kv_heads, ml.hd, S + steps // 2, None, None,
+               phase17=True)
     # qwen3-1.7b training (phase 8): one layer's attention backward; its
     # launches and device us per step are phase 8's, filled in there
     arch, B, S = TRAIN_RUN[:3]
@@ -3531,6 +3598,16 @@ def main() -> int:
                 r["phase16_launches_per_rank"] = ranks16[0]["pp"].get(r["name"], 0)
             if r["name"] in ("moe_router", "moe_router_bwd") and "decode" not in r["shape"]:
                 r["phase16_launches_per_rank"] = ranks16[0]["ep"].get(r["name"], 0)
+
+        with Phase(f"phase 17: serve {MISTRAL_RUN[0]} at full width, {MISTRAL_RUN[1]} layers "
+                   f"(GQA group 12)"):
+            mistral = serve_mistral(torch, np, dev)
+            torch.cuda.empty_cache()
+            for r in rows:
+                if r.pop("phase17", False):
+                    r["launches"] = mistral["decode"]["flash_decode"]
+                    r["served_us_per_step"] = mistral["served"]["flash_decode"]
+                    print_row(r)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -7,6 +7,7 @@ each variant is compiled from a copy under ``kernels/_build/variants/``.
     python3 scripts/decode_variants.py faults
     python3 scripts/decode_variants.py evict-first
     python3 scripts/decode_variants.py splits
+    python3 scripts/decode_variants.py rows
 
 ``faults`` plants faults in the bf16 kernel (a wrong K/V tile, a ring
 refill one tile behind, a tile dropped at each span's end, the last span
@@ -28,6 +29,14 @@ steps): the flash-decode kernels' device time per step from
 ``splits`` compares, the same way, ``decode_splits`` with 1, 2 and 4
 blocks per (slot, KV head), and also times the kernel alone at phase 7's
 three decode shapes under phase 7's L2 flush with each.
+
+``rows`` builds the bf16 kernel with its 16-row instantiation (all four A
+registers of the MMA, two query rows a lane) at every group, where the
+kernel as it is takes the 8-row one up to a group of 8, and times both
+alone at phase 7's four decode rows of a group up to 8 (qwen3-1.7b,
+zamba2-2.7b, qwen3-moe-30b-a3b, seamless-m4t-large-v2's cross-attention)
+under phase 7's L2 flush, in alternating rounds, after checking the 16-row
+build against the plain version there.
 """
 
 from __future__ import annotations
@@ -73,6 +82,11 @@ EVICT_FIRST = [(
                ::"r"(dst), "l"(src), "r"(valid ? 16 : 0), "l"(policy)
                : "memory");""")]
 
+# the 16-row bf16 kernel at every group
+ROWS16 = [("  if (H / K <= 8)\n    return launch_bf16<HD, 8>(",
+           "  if (false)\n    return launch_bf16<HD, 8>(")]
+ROWS_ROUNDS = 5
+
 
 def build_variants(variants):
     """{name: patches} -> {name: loaded library}; all compiled at once."""
@@ -107,7 +121,7 @@ def build_variants(variants):
         lib = ctypes.CDLL(str(so))
         ptr, i32, i64p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
         lib.flash_decode_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, ptr] + [i32] * 8 + [
-            i64p, ctypes.c_float, ptr, ptr]
+            i64p, ctypes.c_float, ptr, ptr, ptr]
         lib.flash_decode_fwd.restype = i32
         libs[name] = lib
     return libs
@@ -295,9 +309,58 @@ def splits(torch, np, dev) -> None:
     decode_attention.decode_splits = rule
 
 
+def phase7_decode_shapes(np):
+    """(label, B, Smax, H, K, hd, lengths) of phase 7's decode rows at a
+    group up to 8, as ``chip_smoke.kernel_table`` builds them; a 0-dim
+    length is an int."""
+    from repro_torch.configs.base import get_config
+    prompts = np.random.default_rng(0).integers(smoke.PROMPT_MIN, smoke.PROMPT_MAX + 1,
+                                                smoke.N_REQUESTS)
+    c = get_config(smoke.SERVE_ARCH)
+    out = [(smoke.SERVE_ARCH, smoke.MAX_BATCH, smoke.MAX_SEQ, c.n_heads, c.n_kv_heads, c.hd,
+            [int(n) + smoke.MAX_NEW // 2 for n in prompts[:smoke.MAX_BATCH]])]
+    for arch, B, S, max_seq, steps in (smoke.HYBRID_RUN, smoke.MOE_RUN):
+        c = get_config(arch)
+        out.append((arch, B, max_seq, c.n_heads, c.n_kv_heads, c.hd, [S + steps // 2] * B))
+    c = get_config(smoke.SEAMLESS_SERVE[0])
+    B, F_ = smoke.SEAMLESS_SERVE[1:3]
+    out.append((f"{c.arch_id} cross-attention", B, F_, c.n_heads, c.n_kv_heads, c.hd, F_))
+    return out
+
+
+def rows(torch, np, dev) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import flash_decode
+    libs = build_variants({"8 rows (as is)": [], "16 rows": ROWS16})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    for name, B, Smax, H, K, hd, lens in phase7_decode_shapes(np):
+        q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+        ck, cv = (torch.randn((2, B, Smax, K, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16)[1] for _ in range(2))
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        want = ref.decode_attention_ref(q, ck, cv, length)
+        for label, lib in libs.items():
+            use(lib)
+            err, ok = smoke.max_err(flash_decode(q, ck, cv, length), want,
+                                    smoke.TOL["bfloat16"])
+            if not ok:
+                raise SystemExit(f"{label} disagrees with the plain version at {name}: {err}")
+        times = {label: [] for label in libs}
+        for _ in range(ROWS_ROUNDS):
+            for label, lib in libs.items():
+                use(lib)
+                times[label].append(1e3 * smoke.time_ms(
+                    torch, lambda: flash_decode(q, ck, cv, length), flush.zero_))
+        print(f"  {name} phase-7 shape B={B} Smax={Smax} H={H} K={K} hd={hd}: "
+              + "; ".join(f"{label} {[round(t, 2) for t in ts]} us (median "
+                          f"{statistics.median(ts):.2f})" for label, ts in times.items()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("faults", "evict-first", "splits"))
+    ap.add_argument("mode", choices=("faults", "evict-first", "splits", "rows"))
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -313,6 +376,8 @@ def main() -> int:
         faults(torch, dev)
     elif args.mode == "evict-first":
         evict_first(torch, np, dev)
+    elif args.mode == "rows":
+        rows(torch, np, dev)
     else:
         splits(torch, np, dev)
     return 0

@@ -31,6 +31,7 @@ from torch import nn
 from . import resolve_device
 from .configs.base import ArchConfig
 from .models.model import model_module
+from .models.sharding import jax_key as _jax_key
 from .models.transformer import dtype_of
 from .optim.adamw import AdamWState
 
@@ -38,18 +39,6 @@ __all__ = ["params_from_jax", "params_to_jax", "state_from_jax", "state_to_jax",
            "load_named", "named_to_jax"]
 
 Named = Iterable[Tuple[str, torch.Tensor]]
-
-
-def _jax_key(name: str) -> Tuple[str, Tuple[int, ...]]:
-    """A port parameter name -> (its JAX key, its index in the stacked
-    leading dims): the numeric parts after the first are module-list
-    indices, e.g. ``mamba.2.5.ssm.in_proj`` -> (``mamba/ssm/in_proj``,
-    (2, 5)); ``shared.attn.wq`` -> (``shared/attn/wq``, ())."""
-    head, *parts = name.split(".")
-    n = 0
-    while parts[n].isdigit():
-        n += 1
-    return "/".join([head, *parts[n:]]), tuple(int(i) for i in parts[:n])
 
 
 def _stacked(named: Named) -> Dict[str, Dict[Tuple[int, ...], torch.Tensor]]:

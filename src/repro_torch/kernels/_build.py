@@ -95,7 +95,7 @@ def library() -> ctypes.CDLL:
             i64p, ctypes.c_float, ptr]
         lib.flash_attention_bwd.restype = i32
         lib.flash_decode_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, ptr] + [i32] * 8 + [
-            i64p, ctypes.c_float, ptr, ptr]
+            i64p, ctypes.c_float, ptr, ptr, ptr]
         lib.flash_decode_fwd.restype = i32
         lib.moe_gating_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 4 + [ptr]
         lib.moe_gating_fwd.restype = i32

@@ -5,8 +5,14 @@ TPU) and takes what the serving and training paths send it: any Sq and Sk
 (ragged tails are masked in the kernel), bf16 or f32, head dim 64, 80 or
 128.  Its gradient is the hand-written backward kernel
 (``csrc/flash_attention_bwd.cu``), from the log-sum-exp the forward saves.
-It runs only on CUDA tensors; ``ops.attention`` sends CPU tensors to the
-plain version.
+
+Every launch is a registered op: ``repro_torch::flash_attention`` (the
+forward that writes the log-sum-exp, differentiable),
+``repro_torch::flash_attention_infer`` (the serving forward) and
+``repro_torch::flash_attention_bwd``.  Their fake implementations give the
+outputs' shapes, so a meta tensor (the dry run's ``launch/dryrun.py``)
+takes the same ops as a CUDA tensor and launches nothing.  ``ops.attention``
+sends CPU tensors to the plain version.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ def check_kernel_input(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    """The shapes the kernels take (the fake implementations check these)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -53,6 +60,10 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if Sq < 1 or Sk < 1 or (causal and Sq > Sk):
         raise ValueError(f"need 1 <= Sq ({Sq}) and 1 <= Sk ({Sk}), Sq <= Sk if causal")
+
+
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    _check_shapes(q, k, v, causal)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_kernel_input(name, t, q)
 
@@ -63,7 +74,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """One launch of the forward kernel, no autograd: (o (B,Sq,H,hd) in q's
     dtype, and with ``with_lse`` the log-sum-exp of each query row's scaled
     scores, (B,H,Sq) f32, else None)."""
-    _check_shapes(q, k, v, causal)
+    _check_inputs(q, k, v, causal)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -82,15 +93,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Gradients (dq, dk, dv) of the forward kernel's output ``o`` against
-    ``do``, from the inputs and the forward's ``lse`` (``csrc/
-    flash_attention_bwd.cu``: three launches, D = rowsum(dO * O), then dK/dV
-    per key tile and dQ per query tile; in bf16 the last two are the wgmma
-    kernels of ``csrc/flash_attention_bwd_sm90.cu``), in the inputs' dtype."""
-    _check_shapes(q, k, v, causal)
+def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                lse: torch.Tensor, do: torch.Tensor, causal: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check_inputs(q, k, v, causal)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):
@@ -116,6 +122,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     return dq, dk, dv
 
 
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+            lse: torch.Tensor, do: torch.Tensor, causal: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _bwd_launch(q, k, v, o, lse, do, causal)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal):
+    _check_shapes(q, k, v, causal)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of the forward kernel's output ``o`` against
+    ``do``, from the inputs and the forward's ``lse`` (``csrc/
+    flash_attention_bwd.cu``: three launches, D = rowsum(dO * O), then dK/dV
+    per key tile and dQ per query tile; in bf16 the last two are the wgmma
+    kernels of ``csrc/flash_attention_bwd_sm90.cu``), in the inputs' dtype."""
+    return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do, causal)
+
+
 flash_attention_bwd.launches = 0   # calls (three kernels each) since the count was reset
 
 
@@ -123,7 +154,8 @@ flash_attention_bwd.launches = 0   # calls (three kernels each) since the count 
 # torch.utils.checkpoint's selective policies see one op (a ctypes launch is
 # invisible to them).  Its forward writes the log-sum-exp and saves it with
 # q, k, v and o; its backward is flash_attention_bwd.
-@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types=("cuda", "cpu"))
 def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     return flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
@@ -131,8 +163,22 @@ def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
 
 @_attention_op.register_fake
 def _(q, k, v, causal):
+    _check_shapes(q, k, v, causal)
     B, Sq, H, _ = q.shape
     return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+# The serving forward: no log-sum-exp, no autograd.
+@torch.library.custom_op("repro_torch::flash_attention_infer", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def _infer_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    return flash_attention_fwd(q, k, v, causal=causal)[0]
+
+
+@_infer_op.register_fake
+def _(q, k, v, causal):
+    _check_shapes(q, k, v, causal)
+    return q.new_empty(q.shape)
 
 
 def _setup_context(ctx, inputs, output):
@@ -162,7 +208,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     log-sum-exp."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return torch.ops.repro_torch.flash_attention(q, k, v, causal)[0]
-    return flash_attention_fwd(q, k, v, causal=causal)[0]
+    return torch.ops.repro_torch.flash_attention_infer(q, k, v, causal)
 
 
 flash_attention.launches = 0   # forward kernel launches since the count was last reset

@@ -16,8 +16,13 @@ op ``repro_torch::moe_router``, whose backward launches ``moe_router_bwd``
 products.  ``moe_gating`` has no backward and refuses inputs that require
 grad.
 
-All run only on CUDA tensors; ``ops.moe_gating`` and ``ops.moe_router``
-send CPU tensors to the plain versions.
+``moe_router``'s and ``moe_router_bwd``'s launches are the registered ops
+``repro_torch::moe_router`` and ``repro_torch::moe_router_bwd``, whose fake
+implementations give the outputs' shapes: a meta tensor (the dry run's
+``launch/dryrun.py``) takes the same ops as a CUDA tensor and launches
+nothing.  ``moe_gating`` is a plain launch on CUDA tensors (it is off every
+path).  ``ops.moe_gating`` and ``ops.moe_router`` send CPU tensors to the
+plain versions.
 """
 
 from __future__ import annotations
@@ -138,13 +143,8 @@ def _check_routed(name: str, t: torch.Tensor, shape, dtype, like: torch.Tensor) 
                          f"{like.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def moe_router_bwd(gw: torch.Tensor, gprobs: Optional[torch.Tensor], w: torch.Tensor,
-                   ids: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
-    """The gradient of the router's logits (T,E) f32 from the gradients of
-    its weights ``gw`` (T,k) and probabilities ``gprobs`` (T,E) (None where
-    nothing reads them) and the forward's ``w``, ``ids`` and ``probs``, all
-    f32 (ids int32), contiguous, on one CUDA device: one launch of
-    ``csrc/moe_router_bwd.cu``, the closed form of ``ref.moe_router_bwd_ref``."""
+def _bwd_launch(gw: torch.Tensor, gprobs: Optional[torch.Tensor], w: torch.Tensor,
+                ids: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     if not probs.is_cuda:
         raise ValueError(f"probs must be a CUDA tensor, got {probs.device}")
     if probs.dim() != 2 or w.dim() != 2:
@@ -170,6 +170,28 @@ def moe_router_bwd(gw: torch.Tensor, gprobs: Optional[torch.Tensor], w: torch.Te
     return dlogits
 
 
+@torch.library.custom_op("repro_torch::moe_router_bwd", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def _bwd_op(gw: torch.Tensor, gprobs: Optional[torch.Tensor], w: torch.Tensor,
+            ids: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    return _bwd_launch(gw, gprobs, w, ids, probs)
+
+
+@_bwd_op.register_fake
+def _(gw, gprobs, w, ids, probs):
+    return probs.new_empty(probs.shape, dtype=torch.float32)
+
+
+def moe_router_bwd(gw: torch.Tensor, gprobs: Optional[torch.Tensor], w: torch.Tensor,
+                   ids: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """The gradient of the router's logits (T,E) f32 from the gradients of
+    its weights ``gw`` (T,k) and probabilities ``gprobs`` (T,E) (None where
+    nothing reads them) and the forward's ``w``, ``ids`` and ``probs``, all
+    f32 (ids int32), contiguous, on one CUDA device: one launch of
+    ``csrc/moe_router_bwd.cu``, the closed form of ``ref.moe_router_bwd_ref``."""
+    return torch.ops.repro_torch.moe_router_bwd(gw, gprobs, w, ids, probs)
+
+
 moe_router_bwd.launches = 0   # kernel launches since the count was last reset
 
 
@@ -178,7 +200,8 @@ moe_router_bwd.launches = 0   # kernel launches since the count was last reset
 # It saves x, the router and the forward's outputs; its backward launches
 # moe_router_bwd, then the router's two f32 products (the reference leaves
 # them to XLA, outside the Pallas kernel).
-@torch.library.custom_op("repro_torch::moe_router", mutates_args=(), device_types="cuda")
+@torch.library.custom_op("repro_torch::moe_router", mutates_args=(),
+                         device_types=("cuda", "cpu"))
 def _router_op(x: torch.Tensor, router: torch.Tensor, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return moe_router_fwd(x, router, k)
@@ -217,14 +240,10 @@ _router_op.register_autograd(_backward, setup_context=_setup_context)
 def moe_router(x: torch.Tensor, router: torch.Tensor, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (T,D) bf16 or f32, router: (D,E) f32 -> (weights (T,k) f32, ids
-    (T,k) int32, probabilities (T,E) f32), as ``moe_router_fwd``.  Where
-    autograd needs a gradient (grad mode on, x or the router requiring
-    grad) the call goes through the registered op, whose backward is
-    ``moe_router_bwd`` and the two products; otherwise (serving) one
-    forward launch."""
-    if torch.is_grad_enabled() and (x.requires_grad or router.requires_grad):
-        return torch.ops.repro_torch.moe_router(x, router, k)
-    return moe_router_fwd(x, router, k)
+    (T,k) int32, probabilities (T,E) f32), as ``moe_router_fwd``: one
+    launch, through the registered op, whose backward (where autograd needs
+    a gradient) is ``moe_router_bwd`` and the two products."""
+    return torch.ops.repro_torch.moe_router(x, router, k)
 
 
 moe_router.launches = 0   # forward kernel launches since the count was last reset

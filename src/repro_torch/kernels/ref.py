@@ -93,11 +93,10 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torc
     return dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def decode_attention_ref(q: torch.Tensor, cache_k: torch.Tensor,
-                         cache_v: torch.Tensor,
-                         length: Union[int, torch.Tensor]) -> torch.Tensor:
-    """One-token decode.  q: (B,1,H,hd), cache: (B,Smax,K,hd), length: a
-    scalar or per-slot (B,) count of valid positions."""
+def _decode_logits(q: torch.Tensor, cache_k: torch.Tensor,
+                   length: Union[int, torch.Tensor]) -> torch.Tensor:
+    """f32 scaled scores (B,K,G,Smax), positions at or past the length
+    masked with -1e30."""
     B, _, H, hd = q.shape
     Smax, K = cache_k.shape[1], cache_k.shape[2]
     qg = q.reshape(B, K, H // K, hd)
@@ -105,10 +104,27 @@ def decode_attention_ref(q: torch.Tensor, cache_k: torch.Tensor,
                           cache_k.float()) * hd ** -0.5
     length = torch.as_tensor(length, device=q.device).reshape(-1, 1)
     valid = torch.arange(Smax, device=q.device)[None, :] < length  # (B,Smax)
-    logits = logits.masked_fill(~valid[:, None, None, :], _NEG)
-    probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
+    return logits.masked_fill(~valid[:, None, None, :], _NEG)
+
+
+def decode_attention_ref(q: torch.Tensor, cache_k: torch.Tensor,
+                         cache_v: torch.Tensor,
+                         length: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One-token decode.  q: (B,1,H,hd), cache: (B,Smax,K,hd), length: a
+    scalar or per-slot (B,) count of valid positions."""
+    B, _, H, hd = q.shape
+    probs = torch.softmax(_decode_logits(q, cache_k, length), dim=-1).to(cache_v.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", probs, cache_v)
     return out.reshape(B, 1, H, hd)
+
+
+def decode_lse_ref(q: torch.Tensor, cache_k: torch.Tensor,
+                   length: Union[int, torch.Tensor]) -> torch.Tensor:
+    """The log-sum-exp of each query head's scaled, masked scores, (B,H)
+    f32: what ``flash_decode(..., with_lse=True)`` returns beside the
+    output."""
+    B, _, H, _ = q.shape
+    return torch.logsumexp(_decode_logits(q, cache_k, length), dim=-1).reshape(B, H)
 
 
 def ssd_state_scan_ref(chunk_states: torch.Tensor, chunk_decays: torch.Tensor,

@@ -9,13 +9,16 @@ whose backward launches ``ssd_state_scan_bwd`` (the reverse walk in closed
 form, from the forward's saved ``prefix``).  The reference has no Pallas
 backward: it differentiates its oracle with XLA.
 
-All run only on CUDA tensors; ``ops.ssd_state_scan`` sends CPU tensors to
-the plain version.
+Both launches are registered ops (``repro_torch::ssd_state_scan``,
+``repro_torch::ssd_state_scan_bwd``), whose fake implementations give the
+outputs' shapes: a meta tensor (the dry run's ``launch/dryrun.py``) takes
+the same ops as a CUDA tensor and launches nothing.
+``ops.ssd_state_scan`` sends CPU tensors to the plain version.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -65,15 +68,9 @@ def ssd_state_scan_fwd(chunk_states: torch.Tensor, chunk_decays: torch.Tensor,
     return prefix, final
 
 
-def ssd_state_scan_bwd(g_prefix: torch.Tensor, g_final: Optional[torch.Tensor],
-                       prefix: torch.Tensor, chunk_decays: torch.Tensor, has_init: bool
-                       ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The gradient of the scan's inputs from the gradients of its outputs,
-    ``g_prefix`` (B,C,H,P,N) and ``g_final`` (B,H,P,N) (None where nothing
-    reads the final state), and the forward's ``prefix`` and decays (B,C,H),
-    all f32, contiguous, on one CUDA device: one launch of
-    ``csrc/ssd_scan_bwd.cu``, the closed form of ``ref.ssd_state_scan_bwd_ref``.
-    Returns (d_states, d_decays, d_init, or None without ``has_init``)."""
+def _bwd_launch(g_prefix: torch.Tensor, g_final: Optional[torch.Tensor],
+                prefix: torch.Tensor, chunk_decays: torch.Tensor, has_init: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     B, C, H, P, N = _dims(prefix)
     dev = prefix.device
     _check("prefix", prefix, (B, C, H, P, N), dev)
@@ -95,6 +92,36 @@ def ssd_state_scan_bwd(g_prefix: torch.Tensor, g_final: Optional[torch.Tensor],
     return d_states, d_decays, d_init
 
 
+@torch.library.custom_op("repro_torch::ssd_state_scan_bwd", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def _bwd_op(g_prefix: torch.Tensor, g_final: Optional[torch.Tensor], prefix: torch.Tensor,
+            chunk_decays: torch.Tensor, has_init: bool) -> List[torch.Tensor]:
+    # an op returns no optional tensor: d_init is a third entry, or none
+    return [t for t in _bwd_launch(g_prefix, g_final, prefix, chunk_decays, has_init)
+            if t is not None]
+
+
+@_bwd_op.register_fake
+def _(g_prefix, g_final, prefix, chunk_decays, has_init):
+    B, C, H, P, N = _dims(prefix)
+    out = [prefix.new_empty(prefix.shape), prefix.new_empty((B, C, H))]
+    return out + [prefix.new_empty((B, H, P, N))] if has_init else out
+
+
+def ssd_state_scan_bwd(g_prefix: torch.Tensor, g_final: Optional[torch.Tensor],
+                       prefix: torch.Tensor, chunk_decays: torch.Tensor, has_init: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The gradient of the scan's inputs from the gradients of its outputs,
+    ``g_prefix`` (B,C,H,P,N) and ``g_final`` (B,H,P,N) (None where nothing
+    reads the final state), and the forward's ``prefix`` and decays (B,C,H),
+    all f32, contiguous, on one CUDA device: one launch of
+    ``csrc/ssd_scan_bwd.cu``, the closed form of ``ref.ssd_state_scan_bwd_ref``.
+    Returns (d_states, d_decays, d_init, or None without ``has_init``)."""
+    d_states, d_decays, *d_init = torch.ops.repro_torch.ssd_state_scan_bwd(
+        g_prefix, g_final, prefix, chunk_decays, has_init)
+    return d_states, d_decays, d_init[0] if d_init else None
+
+
 ssd_state_scan_bwd.launches = 0   # kernel launches since the count was last reset
 
 
@@ -102,7 +129,8 @@ ssd_state_scan_bwd.launches = 0   # kernel launches since the count was last res
 # register theirs: one op that autograd and torch.utils.checkpoint's
 # selective policies see.  It saves the decays and the forward's prefix;
 # its backward is ssd_state_scan_bwd.
-@torch.library.custom_op("repro_torch::ssd_state_scan", mutates_args=(), device_types="cuda")
+@torch.library.custom_op("repro_torch::ssd_state_scan", mutates_args=(),
+                         device_types=("cuda", "cpu"))
 def _scan_op(chunk_states: torch.Tensor, chunk_decays: torch.Tensor,
              init_state: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     return ssd_state_scan_fwd(chunk_states, chunk_decays, init_state)
@@ -142,14 +170,9 @@ def ssd_state_scan(chunk_states: torch.Tensor, chunk_decays: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """chunk_states: (B,C,H,P,N); chunk_decays: (B,C,H); init_state:
     (B,H,P,N) or None (zeros) -> (prefix (B,C,H,P,N), final (B,H,P,N)), as
-    ``ssd_state_scan_fwd``.  Where autograd needs a gradient (grad mode on,
-    an input requiring grad) the call goes through the registered op, whose
-    backward is ``ssd_state_scan_bwd``; otherwise (serving) one forward
-    launch."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (chunk_states, chunk_decays, init_state)):
-        return torch.ops.repro_torch.ssd_state_scan(chunk_states, chunk_decays, init_state)
-    return ssd_state_scan_fwd(chunk_states, chunk_decays, init_state)
+    ``ssd_state_scan_fwd``: one launch, through the registered op, whose
+    backward (where autograd needs a gradient) is ``ssd_state_scan_bwd``."""
+    return torch.ops.repro_torch.ssd_state_scan(chunk_states, chunk_decays, init_state)
 
 
 ssd_state_scan.launches = 0   # forward kernel launches since the count was last reset

@@ -2,18 +2,32 @@
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh``; building one
 needs the default process group of its size, which the caller starts
-(``torch.distributed.init_process_group``).  ``make_production_mesh``
-waits for the port's sharded layouts.
+(``torch.distributed.init_process_group``: on 256 or 512 cards, or a
+``fake`` group of that size for the dry run, ``launch/dryrun.py``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 from ..configs.base import ArchConfig
 from ..models.sharding import DEFAULT_RULES, AxisRules
 
-__all__ = ["make_local_mesh", "rules_for"]
+__all__ = ["make_production_mesh", "make_local_mesh", "rules_for"]
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The production mesh over the default process group: (16, 16)
+    ``("data", "model")`` for one pod, (2, 16, 16) ``("pod", "data",
+    "model")`` for two, rank r at the row-major position r, as
+    ``jax.make_mesh`` lays devices out."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return DeviceMesh(device_type, torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def make_local_mesh(device=None):

@@ -32,6 +32,8 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import layers as L
 from . import transformer as T
+from .sharding import shard
+from .sharding import zeros as sharded_zeros
 
 __all__ = ["DecBlock", "EncDec", "Model", "init", "encode", "hidden", "apply", "loss_fn",
            "init_cache", "prefill", "decode_step"]
@@ -85,7 +87,8 @@ def _enc_block_fwd(cfg: ArchConfig, blk: T.Block, x: torch.Tensor) -> torch.Tens
     """One encoder block: bidirectional self-attention, then the MLP."""
     x = x + _attn(cfg, blk.attn, L.rms_norm(blk.norm1.w, x, cfg.norm_eps),
                   theta=cfg.rope_theta, causal=False)
-    return x + L.mlp_block(blk.mlp, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
+    return shard(x + L.mlp_block(blk.mlp, L.rms_norm(blk.norm2.w, x, cfg.norm_eps)),
+                 "batch", None, None)
 
 
 def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *,
@@ -99,7 +102,7 @@ def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *,
                         f"reference refuses them (its scan carry would change dtype); "
                         f"give frames in the config's dtype")
     body = T._remat_wrap(functools.partial(_enc_block_fwd, cfg), remat)
-    x = frames
+    x = shard(frames, "batch", None, None)
     for blk in params.enc_blocks:
         x = body(blk, x)
     return L.rms_norm(params.enc_norm.w, x, cfg.norm_eps)
@@ -118,7 +121,8 @@ def _cross_and_mlp(cfg: ArchConfig, blk: DecBlock, x: torch.Tensor,
                    enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     x = x + _attn(cfg, blk.xattn, L.rms_norm(blk.norm2.w, x, cfg.norm_eps), theta=0.0,
                   kv_override=enc_kv)
-    return x + L.mlp_block(blk.mlp, L.rms_norm(blk.norm3.w, x, cfg.norm_eps))
+    return shard(x + L.mlp_block(blk.mlp, L.rms_norm(blk.norm3.w, x, cfg.norm_eps)),
+                 "batch", None, None)
 
 
 def _dec_block_fwd(cfg: ArchConfig, blk: DecBlock, x: torch.Tensor,
@@ -136,7 +140,7 @@ def hidden(cfg: ArchConfig, params: EncDec, batch_inputs: Inputs, *,
     scan bodies do (a decoder block's cross K/V inside it); under autograd
     unless the caller turns it off."""
     enc_out = encode(cfg, params, batch_inputs["frames"], remat=remat)
-    x = L.embed_lookup(params.embed, batch_inputs["tokens"])
+    x = shard(L.embed_lookup(params.embed, batch_inputs["tokens"]), "batch", None, None)
     body = T._remat_wrap(functools.partial(_dec_block_fwd, cfg), remat)
     for blk in params.dec_blocks:
         x = body(blk, x, enc_out)
@@ -191,23 +195,24 @@ def prefill(cfg: ArchConfig, params: EncDec, batch_inputs: Inputs,
     if S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq={max_seq}")
     enc_out = encode(cfg, params, batch_inputs["frames"])
-    x = L.embed_lookup(params.embed, tokens)
+    x = shard(L.embed_lookup(params.embed, tokens), "batch", None, None)
     xks, xvs, ks, vs = [], [], [], []
     for blk in params.dec_blocks:
         hn = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)
         q, k, v = L._project_qkv(blk.attn, hn, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                  cfg.rope_theta, cfg.norm_eps)
         o = ops.attention(q, k, v, causal=True)
-        x = x + o.reshape(B, S, cfg.n_heads * cfg.hd) @ blk.attn.wo
+        x = x + L._attn_out(o, blk.attn.wo)
         xk, xv = _enc_kv(cfg, blk, enc_out)
         x = _cross_and_mlp(cfg, blk, x, (xk, xv))
         ks.append(k)
         vs.append(v)
         xks.append(xk)
         xvs.append(xv)
-    kv = torch.zeros((cfg.dec_layers, B, max_seq, cfg.n_kv_heads, cfg.hd), dtype=x.dtype,
-                     device=x.device)
-    cache = {"k": kv, "v": kv.clone(), "xk": torch.stack(xks), "xv": torch.stack(xvs),
+    shape = (cfg.dec_layers, B, max_seq, cfg.n_kv_heads, cfg.hd)
+    kv_axes = (None, "batch", None, "tp", None)
+    cache = {"k": sharded_zeros(shape, kv_axes, x), "v": sharded_zeros(shape, kv_axes, x),
+             "xk": torch.stack(xks), "xv": torch.stack(xvs),
              "enc_len": torch.tensor(enc_out.shape[1], dtype=torch.int32, device=x.device),
              "index": torch.tensor(S, dtype=torch.int32, device=x.device)}
     for i, (k, v) in enumerate(zip(ks, vs)):
@@ -236,6 +241,6 @@ def decode_step(cfg: ArchConfig, params: EncDec, cache: Cache, tokens: torch.Ten
         xk, xv = cache["xk"][i], cache["xv"][i]
         q = (hn @ blk.xattn.wq).reshape(B, 1, H, hd)
         o = ops.decode_attention(q, xk, xv, cache["enc_len"])
-        x = x + o.reshape(B, 1, H * hd) @ blk.xattn.wo
+        x = x + L._attn_out(o, blk.xattn.wo)
         x = x + L.mlp_block(blk.mlp, L.rms_norm(blk.norm3.w, x, cfg.norm_eps))
     return T.logits_of(cfg, params, x), {**cache, "index": index + 1}

@@ -28,6 +28,7 @@ from ..kernels import ops
 from . import layers as L
 from . import mamba2 as M
 from . import transformer as T
+from .sharding import batch_laid_out, shard
 
 __all__ = ["Hybrid", "Model", "n_super", "init", "init_cache", "hidden",
            "apply", "loss_fn", "prefill", "decode_step"]
@@ -86,7 +87,7 @@ def _super_block(cfg: ArchConfig, params: Hybrid, s: int, x: torch.Tensor,
     block's application ``s``."""
     for blk in params.mamba[s]:
         x = M.ssm_block_apply(cfg, blk, x)
-    return _shared_attn(cfg, params, s, x, x0)
+    return shard(_shared_attn(cfg, params, s, x, x0), "batch", None, None)
 
 
 def hidden(cfg: ArchConfig, params: Hybrid, tokens: torch.Tensor, *,
@@ -94,7 +95,7 @@ def hidden(cfg: ArchConfig, params: Hybrid, tokens: torch.Tensor, *,
     """Embedding and every super-block: tokens (B, S) -> hidden (B, S, D).
     Each super-block runs under the remat policy, as the reference's scan
     body does; under autograd unless the caller turns it off."""
-    x0 = L.embed_lookup(params.embed, tokens)
+    x0 = shard(L.embed_lookup(params.embed, tokens), "batch", None, None)
     body = T._remat_wrap(functools.partial(_super_block, cfg, params), remat)
     x = x0
     for s in range(n_super(cfg)):
@@ -151,9 +152,9 @@ def prefill(cfg: ArchConfig, params: Hybrid, tokens: torch.Tensor,
     max_seq = max_seq or S
     if S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq={max_seq}")
-    x0 = L.embed_lookup(params.embed, tokens)
+    x0 = shard(L.embed_lookup(params.embed, tokens), "batch", None, None)
     x = x0
-    cache = init_cache(cfg, B, max_seq, device=x.device)
+    cache = batch_laid_out(init_cache(cfg, B, max_seq, device=x.device), x)
     sh = params.shared
     for s, group in enumerate(params.mamba):
         for j, blk in enumerate(group):
@@ -165,9 +166,9 @@ def prefill(cfg: ArchConfig, params: Hybrid, tokens: torch.Tensor,
         q, k, v = L._project_qkv(sh.attn, hn, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                  cfg.rope_theta, cfg.norm_eps)
         o = ops.attention(q, k, v, causal=True)
-        h = h + o.reshape(B, S, cfg.n_heads * cfg.hd) @ sh.attn.wo
+        h = h + L._attn_out(o, sh.attn.wo)
         h = h + L.mlp_block(sh.mlp, L.rms_norm(sh.norm2.w, h, cfg.norm_eps))
-        x = x + h @ params.proj_out[s].w
+        x = shard(x + h @ params.proj_out[s].w, "batch", None, None)
         cache["k"][s, :, :S] = k
         cache["v"][s, :, :S] = v
     cache["index"] = torch.tensor(S, dtype=torch.int32, device=x.device)

@@ -19,6 +19,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from .sharding import (axis_size, current_mesh, current_rules, gqa_axes, is_dtensor, pinned,
+                       shard)
 
 __all__ = [
     "RMSNorm", "Embed", "Attention", "MLP", "init_weights_", "rms_norm", "silu",
@@ -133,7 +135,46 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_lookup(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p.table):
+        return _embed_sharded(p.table, tokens)
     return F.embedding(tokens, p.table)
+
+
+def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup on a DTensor table (V, D), rank by rank: where V is split,
+    each rank looks up the ids it holds and the rows are summed over its
+    ranks (the vocab-parallel embedding); a split of D stays."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..collectives import psum
+    from ..kernels.sharded import local_region
+    mesh = table.device_mesh
+    tp, gp, ip, op = [], [], [], []
+    vocab = None
+    for i, (a, b) in enumerate(zip(table.placements, tokens.placements)):
+        if a.is_shard(0) and vocab is None:
+            vocab = i
+            tp.append(Shard(0)), gp.append(Shard(0)), ip.append(Replicate())
+            op.append(Replicate())
+        elif a.is_shard(1):
+            tp.append(Shard(1)), gp.append(Shard(1)), ip.append(Replicate()), op.append(Shard(2))
+        elif b.is_shard(0):   # a batch shard: the table's gradient is a partial sum
+            tp.append(Replicate()), gp.append(Partial()), ip.append(Shard(0))
+            op.append(Shard(0))
+        else:
+            tp.append(Replicate()), gp.append(Replicate()), ip.append(Replicate())
+            op.append(Replicate())
+
+    def run(tl, il):
+        if vocab is None:
+            return F.embedding(il, tl)
+        Vl = tl.shape[0]
+        idx = il.long() - mesh.get_local_rank(vocab) * Vl
+        held = (idx >= 0) & (idx < Vl)
+        rows = F.embedding(idx.clamp(0, Vl - 1), tl)
+        return psum(torch.where(held[..., None], rows, 0.0), [mesh.get_group(vocab)])
+
+    return local_region(run, mesh, (tp, ip), op, (gp, ip))(table, tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -173,13 +214,37 @@ def _rope_tables(seq: int, head_dim: int, theta: float, offset: Offset,
 # attention
 # ---------------------------------------------------------------------------
 
+def _head_axes(n_heads: int, n_kv: int, head_dim: int, mode: str):
+    """The logical axes of q's heads, k/v's heads and the head dim under the
+    mesh and rules in force, as the reference lays them out: decode shards
+    the KV heads where they divide ``tp`` and else the head dim of q and the
+    cache alike (``gqa_axes``); training and prefill shard q's heads and k/v's
+    where each divides (k/v are repeated inside the attention otherwise)."""
+    tp = current_rules().get("tp")
+    n = axis_size(tp) if isinstance(tp, str) else 1
+    if mode == "decode":
+        kv_ax, hd_ax = gqa_axes(n_kv, head_dim)
+        return ("tp" if kv_ax else None), kv_ax, hd_ax
+    return (("tp" if n > 1 and n_heads % n == 0 else None),
+            ("tp" if n > 1 and n_kv % n == 0 else None), None)
+
+
 def _project_qkv(p: Attention, x: torch.Tensor, n_heads: int, n_kv: int,
-                 head_dim: int, theta: float, eps: float, pos_offset: Offset = 0):
-    """Bias (qwen2), reshape to heads, per-head qk norm (qwen3), RoPE."""
+                 head_dim: int, theta: float, eps: float, pos_offset: Offset = 0,
+                 mode: str = "train"):
+    """Bias (qwen2), reshape to heads, per-head qk norm (qwen3), RoPE.  Under
+    a mesh, q, k and v are laid out as the reference lays them out (the
+    flat projections first, so that a head split stays one)."""
     B, S, _ = x.shape
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if hasattr(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
+    sharded = current_mesh() is not None
+    if sharded:
+        q_ax, kv_ax, hd_ax = _head_axes(n_heads, n_kv, head_dim, mode)
+        q = shard(q, "batch", None, q_ax)
+        k = shard(k, "batch", None, kv_ax)
+        v = shard(v, "batch", None, kv_ax)
     q = q.reshape(B, S, n_heads, head_dim)
     k = k.reshape(B, S, n_kv, head_dim)
     v = v.reshape(B, S, n_kv, head_dim)
@@ -190,6 +255,10 @@ def _project_qkv(p: Attention, x: torch.Tensor, n_heads: int, n_kv: int,
         cos, sin = _rope_tables(S, head_dim, theta, pos_offset, x.device)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if sharded:
+        q = shard(q, "batch", None, q_ax, hd_ax)
+        k = shard(k, "batch", None, kv_ax, hd_ax)
+        v = shard(v, "batch", None, kv_ax, hd_ax)
     return q, k, v
 
 
@@ -214,7 +283,6 @@ def attention_block(p: Attention, x: torch.Tensor, *, n_heads: int, n_kv: int,
     is projected from x, without RoPE, and the attention is not causal (the
     reference also projects K/V from x and drops them; the result is the
     same)."""
-    B, S, _ = x.shape
     if kv_override is None:
         q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, theta, eps)
     else:
@@ -222,7 +290,22 @@ def attention_block(p: Attention, x: torch.Tensor, *, n_heads: int, n_kv: int,
         q = _project_q(p, x, n_heads, head_dim, eps)
         causal = False
     o = ops.attention(q, k, v, causal=causal)            # (B, S, H, hd)
-    return o.reshape(B, S, n_heads * head_dim) @ p.wo
+    return _attn_out(o, p.wo)
+
+
+def _attn_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """Attention's heads (B, S, H, hd) merged and projected by ``wo``, then
+    ``_reduced``; under a mesh the merged heads' gradient keeps their
+    layout (``pinned``)."""
+    return _reduced(pinned(o.reshape(*o.shape[:2], -1)) @ wo)
+
+
+def _reduced(y: torch.Tensor) -> torch.Tensor:
+    """A block's output projection, summed over ``tp`` where its input was
+    split (a no-op without a mesh): under a mesh DTensor would otherwise
+    carry the partial sum through the next norm and gather the next
+    weights, as XLA does not."""
+    return shard(y, "batch", None, None)
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
@@ -238,20 +321,56 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     (saving a copy of the cache per layer per step), then attends over
     ``index + 1`` positions.
     """
-    B = x.shape[0]
     per_slot = index.dim() > 0
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, theta, eps,
-                           pos_offset=index[:, None] if per_slot else index)
-    if per_slot:
-        slots = torch.arange(B, device=x.device)
-        cache_k[slots, index] = k[:, 0].to(cache_k.dtype)
-        cache_v[slots, index] = v[:, 0].to(cache_v.dtype)
-    else:   # written at the device-side index: the host never waits
-        at = index.reshape(1).long()
-        cache_k.index_copy_(1, at, k.to(cache_k.dtype))
-        cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+                           pos_offset=index[:, None] if per_slot else index, mode="decode")
+    _write_cache(cache_k, k, index)
+    _write_cache(cache_v, v, index)
     o = ops.decode_attention(q, cache_k, cache_v, index + 1)   # (B, 1, H, hd)
-    return o.reshape(B, 1, n_heads * head_dim) @ p.wo
+    return _attn_out(o, p.wo)
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, index: torch.Tensor) -> None:
+    """cache (B, Smax, K, hd)[b, index] = new (B, 1, K, hd)[b, 0], in place:
+    at each slot's own position for a (B,) index, else at the one 0-dim
+    index, on the device (the host never waits).  On DTensors each rank
+    writes its own shard (a scatter has no DTensor strategy); where the
+    cache's positions are split over ranks, the rank that holds the index
+    writes ``new`` and the others write back the value they hold."""
+    if is_dtensor(cache):
+        _write_cache_sharded(cache, new, index)
+    elif index.dim() > 0:
+        slots = torch.arange(cache.shape[0], device=cache.device)
+        cache[slots, index] = new[:, 0].to(cache.dtype)
+    else:
+        cache.index_copy_(1, index.reshape(1).long(), new.to(cache.dtype))
+
+
+def _write_cache_sharded(cache: torch.Tensor, new: torch.Tensor, index: torch.Tensor) -> None:
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..kernels.sharded import local_region
+    mesh = cache.device_mesh
+    npl = [Replicate() if p.is_shard(1) else p for p in cache.placements]
+    ipl = [Shard(0) if p.is_shard(0) and index.dim() else Replicate()
+           for p in cache.placements]
+    seq = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+
+    def write(cl, nl, il):
+        if seq:                       # this rank's positions [lo, lo + Sl)
+            Sl = cl.shape[1]
+            lo = mesh.get_local_rank(seq[0]) * Sl
+            held = (il >= lo) & (il < lo + Sl)
+            il = (il - lo).clamp(0, Sl - 1)
+            old = (cl[torch.arange(cl.shape[0], device=cl.device), il][:, None]
+                   if il.dim() else cl.index_select(1, il.reshape(1).long()))
+            mask = held[:, None, None, None] if il.dim() else held
+            nl = torch.where(mask, nl.to(cl.dtype), old)
+        _write_cache(cl, nl, il)
+        return cl
+
+    local_region(write, mesh, (list(cache.placements), npl, ipl), list(cache.placements))(
+        cache, new, index)
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +379,8 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
 
 def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU."""
-    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    h = shard(F.silu(x @ p.w_gate) * (x @ p.w_up), "batch", None, "tp")
+    return _reduced(h @ p.w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +390,8 @@ def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        z_loss: float = 0.0) -> torch.Tensor:
     """Mean token cross-entropy in f32.  logits (B,S,V), labels (B,S)."""
+    if is_dtensor(logits):
+        return _chunk_loss_sharded(logits.float(), labels, z_loss) / labels.numel()
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
@@ -281,9 +403,57 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def _chunk_loss(xc: torch.Tensor, w_out: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
     logits = (xc @ w_out).float()           # the product in the parameter dtype
+    if is_dtensor(logits):
+        return _chunk_loss_sharded(logits, lc)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
     return torch.sum(lse - gold)
+
+
+def _chunk_loss_sharded(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0
+                        ) -> torch.Tensor:
+    """``_chunk_loss``'s sum on DTensor logits (B, c, V), rank by rank (with
+    ``z_loss``, ``cross_entropy_loss``'s z term too): the vocab-parallel
+    cross-entropy where V is split (each rank's max and sum of
+    exponentials, then the label's logit from the rank that holds it, all
+    combined by all-reduces), the plain one where it is not."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..collectives import psum
+    from ..kernels.sharded import local_region
+    mesh = logits.device_mesh
+    lp, bp, op = [], [], []
+    vocab = None
+    for i, p in enumerate(logits.placements):
+        if p.is_shard(0):
+            lp.append(Shard(0)), bp.append(Shard(0)), op.append(Partial())
+        elif p.is_shard(2) and vocab is None:
+            vocab = i
+            lp.append(Shard(2)), bp.append(Replicate()), op.append(Replicate())
+        else:
+            lp.append(Replicate()), bp.append(Replicate()), op.append(Replicate())
+
+    def total(lse, gold):
+        loss = lse - gold
+        return torch.sum(loss + z_loss * lse ** 2 if z_loss > 0 else loss)
+
+    def run(ll, lbl):
+        if vocab is None:
+            lse = torch.logsumexp(ll, dim=-1)
+            return total(lse, torch.gather(ll, -1, lbl.long()[..., None])[..., 0])
+        import torch.distributed as dist
+        group = mesh.get_group(vocab)
+        Vl = ll.shape[-1]
+        lo = mesh.get_local_rank(vocab) * Vl
+        m = ll.detach().amax(dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        lse = m[..., 0] + torch.log(psum(torch.exp(ll - m).sum(dim=-1), [group]))
+        idx = lbl.long() - lo
+        held = (idx >= 0) & (idx < Vl)
+        gold = torch.gather(ll, -1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
+        return total(lse, psum(torch.where(held, gold, 0.0), [group]))
+
+    return local_region(run, mesh, (lp, bp), op)(logits, labels)
 
 
 def chunked_lm_loss(x: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,

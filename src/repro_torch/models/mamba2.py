@@ -26,6 +26,7 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import layers as L
+from .sharding import shard
 
 __all__ = ["SSM", "SSMBlock", "dims", "init_ssm_block", "ssd_forward", "ssd_chunked",
            "ssm_block_core", "ssm_block_apply", "init_ssm_cache", "ssm_decode_step"]
@@ -174,9 +175,15 @@ def ssm_block_core(cfg: ArchConfig, blk: SSMBlock, x: torch.Tensor
     xin, Bm, Cm = torch.split(_causal_conv(xbc_in, p.conv_w), [d_inner, N, N], dim=-1)
     dt = F.softplus(dtp.float() + p.dt_bias)
     Bsz, S = x.shape[:2]
-    y, final = ssd_chunked(cfg, xin.reshape(Bsz, S, H, P), dt, p.a_log, Bm, Cm, p.d_skip)
+    # the scan's inputs whole along the sequence: under a mesh DTensor may
+    # resolve the projection's FSDP partial sum by splitting positions,
+    # which the chunk reshapes cannot carry
+    xh = shard(xin.reshape(Bsz, S, H, P), "batch", None, "tp", None)
+    dt = shard(dt, "batch", None, "tp")
+    Bm, Cm = (shard(t, "batch", None, None) for t in (Bm, Cm))
+    y, final = ssd_chunked(cfg, xh, dt, p.a_log, Bm, Cm, p.d_skip)
     y = _gated_headnorm(y.reshape(Bsz, S, d_inner), z, p.norm, H, cfg.norm_eps)
-    return x + y @ p.out_proj, final, xbc_in
+    return x + L._reduced(y @ p.out_proj), final, xbc_in
 
 
 def ssm_block_apply(cfg: ArchConfig, blk: SSMBlock, x: torch.Tensor) -> torch.Tensor:
@@ -225,4 +232,4 @@ def ssm_decode_step(cfg: ArchConfig, blk: SSMBlock, x: torch.Tensor,
     y = y + xh * p.d_skip[None, :, None]
     y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
     y = _gated_headnorm(y, z, p.norm, H, cfg.norm_eps)
-    return x + y @ p.out_proj, state, window[:, 1:]
+    return x + L._reduced(y @ p.out_proj), state, window[:, 1:]

@@ -25,6 +25,7 @@ ranks.  ``local_experts`` cuts a rank's shard of the weights.
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -37,7 +38,7 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import layers as L
 from . import transformer as T
-from .sharding import _mesh_axes, _resolve, current_rules
+from .sharding import _mesh_axes, _resolve, current_rules, is_dtensor, placements, shard
 
 __all__ = ["MoE", "Block", "Model", "init_moe", "init", "init_cache",
            "moe_block", "local_experts", "hidden", "apply", "AUX_LOSS_COEF", "loss_fn",
@@ -215,7 +216,10 @@ def moe_block(cfg: ArchConfig, p: MoE, x: torch.Tensor
     term is summed over ``model``.  Gradients are those of the reference's
     global arrays: the router's summed over every axis, the experts' over
     the batch axes, x's over ``model``.  The capacity follows from the local
-    token count, as in the reference."""
+    token count, as in the reference.  On DTensors the block runs rank by
+    rank (``_moe_sharded``)."""
+    if is_dtensor(x):
+        return _moe_sharded(cfg, p, x)
     B, S, D = x.shape
     E = cfg.n_experts
     tp_axis, tp_size, ep = _expert_split(cfg)
@@ -240,6 +244,38 @@ def moe_block(cfg: ArchConfig, p: MoE, x: torch.Tensor
     return y.reshape(B, S, D), aux
 
 
+def _moe_sharded(cfg: ArchConfig, p: MoE, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_block`` on DTensors: the reference's ``shard_map`` of its
+    sharded branch.  x is split over the batch axes and replicated over
+    ``model``, the router replicated, the experts split over ``model`` by
+    expert (expert parallel) or by ``d_ff`` (expert TP), every other split
+    of theirs (``fsdp``) gathered; each rank then runs the branch above on
+    its shards, whose collectives (and their transposes) make its outputs
+    and gradients whole: y split as x, aux replicated."""
+    from torch.distributed.tensor import Replicate
+
+    from ..kernels.sharded import local_region
+    mesh = x.device_mesh
+    tp_axis, tp_size, ep = _expert_split(cfg)
+    xp = list(placements((_resolve("batch", _mesh_axes(), x.shape[0]), None, None), mesh))
+    if tp_size <= 1:
+        wspec = {"w_gate": (), "w_up": (), "w_down": ()}
+    elif ep:
+        wspec = {k: (tp_axis,) for k in ("w_gate", "w_up", "w_down")}
+    else:
+        wspec = {"w_gate": (None, None, tp_axis), "w_up": (None, None, tp_axis),
+                 "w_down": (None, tp_axis, None)}
+    names = ("router", "w_gate", "w_up", "w_down")
+    wp = [[Replicate()] * mesh.ndim] + [list(placements(wspec[n], mesh)) for n in names[1:]]
+
+    def run(xl, *ws):
+        return moe_block(cfg, SimpleNamespace(**dict(zip(names, ws))), xl)
+
+    return local_region(run, mesh, (xp, *wp), (xp, [Replicate()] * mesh.ndim))(
+        x, *(getattr(p, n) for n in names))
+
+
 def _moe_ffn(cfg: ArchConfig, blk: Block, h: torch.Tensor) -> torch.Tensor:
     return moe_block(cfg, blk.moe, h)[0]
 
@@ -256,7 +292,7 @@ def _block_fwd(cfg: ArchConfig, blk: Block, x: torch.Tensor
                               n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                               theta=cfg.rope_theta, eps=cfg.norm_eps)
     y, aux = moe_block(cfg, blk.moe, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
-    return x + y, aux
+    return shard(x + y, "batch", None, None), aux
 
 
 def hidden(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor, *,
@@ -265,7 +301,7 @@ def hidden(cfg: ArchConfig, params: T.Transformer, tokens: torch.Tensor, *,
     Each block, its aux included, runs under the remat policy, as the
     reference's scan body does; under autograd unless the caller turns it
     off."""
-    x = L.embed_lookup(params.embed, tokens)
+    x = shard(L.embed_lookup(params.embed, tokens), "batch", None, None)
     body = T._remat_wrap(functools.partial(_block_fwd, cfg), remat)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:

@@ -23,6 +23,8 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import layers as L
+from .sharding import current_rules, shard
+from .sharding import zeros as sharded_zeros
 
 __all__ = ["Block", "Transformer", "Model", "init", "init_cache", "block_fwd", "hidden",
            "apply", "logits_of", "lm_loss", "loss_fn", "prefill", "decode_step",
@@ -114,7 +116,8 @@ def block_fwd(cfg: ArchConfig, blk: nn.Module, x: torch.Tensor, ffn: Ffn = _mlp
     x = x + L.attention_block(blk.attn, h, n_heads=cfg.n_heads,
                               n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                               theta=cfg.rope_theta, eps=cfg.norm_eps)
-    return x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
+    return shard(x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps)),
+                 "batch", None, None)
 
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -148,7 +151,7 @@ def hidden(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
            remat: str = "none") -> torch.Tensor:
     """Embedding and every block: tokens (B, S) -> hidden (B, S, D).  Runs
     under autograd unless the caller turns it off."""
-    x = L.embed_lookup(params.embed, tokens)
+    x = shard(L.embed_lookup(params.embed, tokens), "batch", None, None)
     body = _remat_wrap(functools.partial(block_fwd, cfg), remat)
     for blk in params.blocks:
         x = body(blk, x)
@@ -191,16 +194,16 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
     if S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq={max_seq}")
     shape = (cfg.n_layers, B, max_seq, cfg.n_kv_heads, cfg.hd)
-    x = L.embed_lookup(params.embed, tokens)
-    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    x = shard(L.embed_lookup(params.embed, tokens), "batch", None, None)
+    ks, vs = (sharded_zeros(shape, (None, "batch", None, "tp", None), x) for _ in range(2))
     for i, blk in enumerate(params.blocks):
         hn = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)
         q, k, v = L._project_qkv(blk.attn, hn, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                  cfg.rope_theta, cfg.norm_eps)
         o = ops.attention(q, k, v, causal=True)
-        x = x + o.reshape(B, S, cfg.n_heads * cfg.hd) @ blk.attn.wo
-        x = x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
+        x = x + L._attn_out(o, blk.attn.wo)
+        x = shard(x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps)),
+                  "batch", None, None)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
     cache = {"k": ks, "v": vs,
@@ -215,12 +218,20 @@ def decode_step(cfg: ArchConfig, params: Transformer, cache: Cache,
     whose K/V tensors are updated in place and whose index advances."""
     index = cache["index"]
     x = L.embed_lookup(params.embed, tokens)
+    # ZeRO-sharded decode activations where the weights are (the reference's
+    # zero_decode): resharding a (B,1,D) activation is ~free next to a gather
+    zero_decode = bool(current_rules().get("fsdp"))
     for i, blk in enumerate(params.blocks):
+        if zero_decode:
+            x = shard(x, None, None, "fsdp")
         hn = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)
         x = x + L.attention_decode(blk.attn, hn, cache["k"][i], cache["v"][i], index,
                                    n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                                    head_dim=cfg.hd, theta=cfg.rope_theta,
                                    eps=cfg.norm_eps)
-        x = x + ffn(cfg, blk, L.rms_norm(blk.norm2.w, x, cfg.norm_eps))
+        hn = L.rms_norm(blk.norm2.w, x, cfg.norm_eps)
+        if zero_decode:
+            hn = shard(hn, None, None, "fsdp")
+        x = x + ffn(cfg, blk, hn)
     logits = logits_of(cfg, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "index": index + 1}

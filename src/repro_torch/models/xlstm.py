@@ -29,6 +29,7 @@ gradient over tied maxima, as JAX's ``max`` does.
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -39,6 +40,7 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from . import layers as L
 from . import transformer as T
+from .sharding import batch_laid_out, is_dtensor, parameters_as, shard
 from .mamba2 import _causal_conv
 
 __all__ = ["XLSTM", "Model", "dims", "n_groups", "init", "mlstm_parallel",
@@ -164,7 +166,7 @@ def _mlstm_out(cfg: ArchConfig, p: MLSTM, y: torch.Tensor, z: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """Per-head norm, the silu(z) gate and the down projection."""
     y = _head_norm(y, p.gn, cfg.n_heads, cfg.norm_eps, dtype)
-    return (y * L.silu(z)) @ p.w_down
+    return L._reduced((y * L.silu(z)) @ p.w_down)
 
 
 def mlstm_parallel(cfg: ArchConfig, p: MLSTM, x: torch.Tensor) -> torch.Tensor:
@@ -331,6 +333,8 @@ def slstm_forward(cfg: ArchConfig, p: SLSTM, x: torch.Tensor, return_state: bool
     loop runs head-major ((H, B, hd) states, the inputs' gates laid out
     per head once before it), which makes each step's recurrent product one
     batched product with no copies."""
+    if is_dtensor(x):
+        return _slstm_sharded(cfg, p, x, return_state)
     B, S, D = x.shape
     H = cfg.n_heads
     xg = _causal_conv(x, p.conv_w).float() @ p.w_gates + p.b_gates      # (B,S,4D)
@@ -350,6 +354,30 @@ def slstm_forward(cfg: ArchConfig, p: SLSTM, x: torch.Tensor, return_state: bool
     cell = {k: v.transpose(0, 1).reshape(B, D) for k, v in state.items()}
     cell["conv"] = x[:, S - (cfg.conv_kernel - 1):]
     return out, cell
+
+
+def _slstm_sharded(cfg: ArchConfig, p: SLSTM, x: torch.Tensor, return_state: bool):
+    """``slstm_forward`` on a DTensor x, rank by rank: each rank runs the
+    loop over its batch shard with the whole weights (a loop of small ops
+    per position, which DTensor would dispatch one by one), and the
+    weights' gradients are partial sums over the batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..kernels.sharded import local_region
+    mesh = x.device_mesh
+    xp = [Shard(0) if q.is_shard(0) else Replicate() for q in x.placements]
+    wp = [Replicate()] * mesh.ndim
+    gp = [Partial() if q.is_shard(0) else Replicate() for q in x.placements]
+    names = [n for n, _ in p.named_parameters()]
+
+    def run(xl, *ws):
+        out = slstm_forward(cfg, SimpleNamespace(**dict(zip(names, ws))), xl, return_state)
+        return (out[0], *(out[1][k] for k in _S_KEYS)) if return_state else out
+
+    outs = tuple([xp] * (1 + len(_S_KEYS))) if return_state else xp
+    res = local_region(run, mesh, (xp, *[wp] * len(names)), outs,
+                       (xp, *[gp] * len(names)))(x, *(getattr(p, n) for n in names))
+    return (res[0], dict(zip(_S_KEYS, res[1:]))) if return_state else res
 
 
 def slstm_step(cfg: ArchConfig, p: SLSTM, x: torch.Tensor, cell: Cell
@@ -383,10 +411,37 @@ def _mlstm_block_fwd(cfg: ArchConfig, blk: MLSTMBlock, x: torch.Tensor) -> torch
 
 def _group(cfg: ArchConfig, params: XLSTM, g: int, x: torch.Tensor) -> torch.Tensor:
     """Group ``g``: its mLSTM blocks, then its sLSTM block."""
+    if is_dtensor(x):
+        return _group_sharded(cfg, params, g, x)
     for blk in params.mlstm[g]:
         x = _mlstm_block_fwd(cfg, blk, x)
     sblk = params.slstm[g]
-    return x + slstm_forward(cfg, sblk.slstm, L.rms_norm(sblk.norm1.w, x, cfg.norm_eps))
+    return shard(x + slstm_forward(cfg, sblk.slstm, L.rms_norm(sblk.norm1.w, x, cfg.norm_eps)),
+                 "batch", None, None)
+
+
+def _group_sharded(cfg: ArchConfig, params: XLSTM, g: int, x: torch.Tensor) -> torch.Tensor:
+    """``_group`` on a DTensor x, rank by rank: the xLSTM's cells are loops
+    and chunked products over many small dims, which DTensor would
+    propagate op by op (and cannot through some of their gradients); each
+    rank runs the group on its batch shard with the group's weights whole,
+    whose gradients are partial sums over the batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..kernels.sharded import local_region
+    mesh = x.device_mesh
+    xp = [Shard(0) if q.is_shard(0) else Replicate() for q in x.placements]
+    wp = [Replicate()] * mesh.ndim
+    gp = [Partial() if q.is_shard(0) else Replicate() for q in x.placements]
+    prefixes = (f"mlstm.{g}.", f"slstm.{g}.")
+    named = [(n, t) for n, t in params.named_parameters() if n.startswith(prefixes)]
+
+    def run(xl, *ws):
+        with parameters_as(params, {n: w for (n, _), w in zip(named, ws)}):
+            return _group(cfg, params, g, xl)
+
+    return local_region(run, mesh, (xp, *[wp] * len(named)), xp,
+                        (xp, *[gp] * len(named)))(x, *(t for _, t in named))
 
 
 def hidden(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, *,
@@ -394,7 +449,7 @@ def hidden(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, *,
     """Embedding and every group: tokens (B, S) -> hidden (B, S, D).  Each
     group runs under the remat policy, as the reference's scan body does;
     under autograd unless the caller turns it off."""
-    x = L.embed_lookup(params.embed, tokens)
+    x = shard(L.embed_lookup(params.embed, tokens), "batch", None, None)
     body = T._remat_wrap(functools.partial(_group, cfg, params), remat)
     for g in range(n_groups(cfg)):
         x = body(g, x)
@@ -480,11 +535,16 @@ def prefill(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor,
     stepped through token by token instead, as the reference does."""
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+    if is_dtensor(tokens):   # the mLSTM cells stack (G, m) ahead of the batch
+        cache = {**batch_laid_out({k: v for k, v in cache.items() if k.startswith("m_")},
+                                  tokens, 2),
+                 **batch_laid_out({k: v for k, v in cache.items() if not k.startswith("m_")},
+                                  tokens, 1)}
     if S % min(cfg.chunk, S) or S <= cfg.conv_kernel:
         for t in range(S):
             logits, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1])
         return logits, cache
-    x = L.embed_lookup(params.embed, tokens)
+    x = shard(L.embed_lookup(params.embed, tokens), "batch", None, None)
     for g in range(n_groups(cfg)):
         for j, blk in enumerate(params.mlstm[g]):
             h = L.rms_norm(blk.norm1.w, x, cfg.norm_eps)

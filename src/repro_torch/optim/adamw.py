@@ -50,7 +50,10 @@ class AdamW(NamedTuple):
     def init(self, params: nn.Module) -> AdamWState:
         named = list(params.named_parameters())
         device = named[0][1].device
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        # laid out as the parameter (a DTensor's moments are DTensors of its
+        # placements)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32,  # noqa: E731
+                                           memory_format=torch.contiguous_format)
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                           m={n: zeros(p) for n, p in named},
                           v={n: zeros(p) for n, p in named})

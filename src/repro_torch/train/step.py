@@ -18,6 +18,7 @@ import torch
 from ..collectives import pmean
 from ..configs.base import ArchConfig
 from ..models.model import bundle_for, model_module
+from ..models.sharding import is_dtensor
 from ..models.transformer import dtype_of
 from ..optim.adamw import AdamW
 from ..optim.compress import compressed_psum_pod
@@ -52,6 +53,30 @@ def _split_microbatches(batch: Batch, n: int) -> List[Batch]:
         raise ValueError(f"batch {B} does not split into {n} microbatches")
     return [{k: x[i * (B // n):(i + 1) * (B // n)] for k, x in batch.items()}
             for i in range(n)]
+
+
+def _compressed_over_pods(g: torch.Tensor, p: torch.Tensor, pod, mesh) -> torch.Tensor:
+    """``compressed_psum_pod`` of a DTensor gradient of the global mean loss
+    (the dry run's train step), rank by rank: each rank's pod part (a
+    partial sum over ``pod``, or a replicated gradient read as n equal
+    parts) of the whole gradient, gathered over the other mesh dims, is
+    scaled to the gradient of the pod's own mean loss as the reference's
+    per-pod step computes it, then summed over the pods in int8 (the
+    reference's sum of the pods' gradients), and laid out as the parameter
+    again.  Whole, because the reference quantizes the pod's whole gradient
+    (one int8 scale for all of it, one for each pod's chunk of it); each
+    rank's shard alone would be rounded by other scales."""
+    from torch.distributed.tensor import Replicate
+
+    from ..kernels.sharded import local_region
+    i = list(mesh.mesh_dim_names).index("pod")
+    partial = g.placements[i].is_partial()
+    scale = mesh.size(i) if partial else 1
+    inp = [Replicate()] * mesh.ndim
+    inp[i] = g.placements[i] if partial else Replicate()
+    whole = local_region(lambda gl: compressed_psum_pod(gl * scale, pod), mesh, (inp,),
+                         [Replicate()] * mesh.ndim)(g)
+    return whole.redistribute(mesh, p.placements)
 
 
 def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, remat: str = "none",
@@ -100,6 +125,9 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, remat: str = "none",
 
         def grad_fn(params, batch: Batch):
             loss, grads = grads_of(params, batch)
+            if is_dtensor(loss):
+                return loss, [_compressed_over_pods(g, p, pod, mesh)
+                              for g, p in zip(grads, params.parameters())]
             return (pmean(loss, [pod]),
                     [compressed_psum_pod(g, pod) for g in grads])
 

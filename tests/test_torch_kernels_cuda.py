@@ -382,6 +382,59 @@ def test_flash_decode_scalar_length_equals_per_slot_lengths(cuda_device, dtype, 
     assert torch.equal(flash_decode(q, ck, cv, scalar), flash_decode(q, ck, cv, per_slot))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Smax,H,K,hd,length", [
+    # mistral-large-123b: 96 query heads over 8 KV heads of 128, group 12
+    (4, 1024, 96, 8, 128, [1, 300, 1000, 1024]),
+    (1, 4096, 96, 8, 128, [4096]),
+    (8, 2048, 96, 8, 128, 777),
+    # group 24: two row blocks of 16 (the second partial), each reading the cache
+    (3, 700, 48, 2, 128, [5, 64, 700]),
+    (2, 300, 24, 1, 64, 299),
+    (4, 512, 96, 4, 80, [100, 200, 300, 512]),
+])
+def test_flash_decode_kernel_at_groups_above_8(cuda_device, dtype, B, Smax, H, K, hd, length):
+    """A GQA group of 12 (one pass over the cache, all 16 rows of the MMA)
+    and of 24 (two row blocks) against the plain version, element- and
+    row-wise, one layer of a stacked cache read in place."""
+    q, ck, cv = _randn(13, (B, 1, H, hd), (2, B, Smax, K, hd), (2, B, Smax, K, hd),
+                       dtype=dtype, device=cuda_device)
+    ck, cv = ck[1], cv[1]
+    if isinstance(length, list):
+        length = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    before = flash_decode.launches
+    out = ops.decode_attention(q, ck, cv, length)
+    assert flash_decode.launches == before + 1
+    want = ref.decode_attention_ref(q, ck, cv, length)
+    _assert_close(out, want, dtype)
+    _assert_rows_close(out, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Smax,H,K,hd,length", [
+    (8, 1024, 16, 8, 128, [1, 48, 63, 64, 65, 700, 1000, 1024]),   # split over a cluster
+    (64, 256, 16, 16, 64, 200),                                   # one block a pair
+    (4, 1024, 96, 8, 128, [0, 300, 1000, 1024]),                   # group 12, one slot masked
+    (3, 700, 48, 2, 80, [5, 64, 700]),                             # group 24
+])
+def test_flash_decode_lse_matches_plain(cuda_device, dtype, B, Smax, H, K, hd, length):
+    """The log-sum-exps the kernel writes for the sharded decode's merge
+    over position shards against ``decode_lse_ref``; the output of the same
+    launch is the one without them, bit for bit."""
+    q, ck, cv = _randn(17, (B, 1, H, hd), (B, Smax, K, hd), (B, Smax, K, hd),
+                       dtype=dtype, device=cuda_device)
+    if isinstance(length, list):
+        length = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    before = flash_decode.launches
+    out, lse = ops.decode_attention_lse(q, ck, cv, length)
+    assert flash_decode.launches == before + 1
+    assert lse.shape == (B, H) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_decode(q, ck, cv, length))
+    torch.testing.assert_close(lse, ref.decode_lse_ref(q, ck, length), atol=1e-3, rtol=1e-3)
+
+
 # seamless-m4t-large-v2 (chip_smoke.py phase 13): head dim 64, group 1;
 # B = 4 requests of 1024 frames, a decoder of up to 1024 tokens (training)
 # or 64 (serving)
