@@ -119,11 +119,18 @@ def init_weights_(model: nn.Module, seed: int, device: torch.device) -> nn.Modul
 # primitives
 # ---------------------------------------------------------------------------
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a norm, a gate or a loss is computed in: f32 for bf16 and
+    f32 inputs, f64 for f64 ones (a host-independent reference run)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMS norm over the last dim, computed in f32 and cast back."""
-    xf = x.float()
+    """RMS norm over the last dim, computed in f32 (f64 for f64 x) and cast
+    back."""
+    xf = x.to(acc_dtype(x.dtype))
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (y * w.float()).to(x.dtype)
+    return (y * w.to(xf.dtype)).to(x.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -389,10 +396,11 @@ def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        z_loss: float = 0.0) -> torch.Tensor:
-    """Mean token cross-entropy in f32.  logits (B,S,V), labels (B,S)."""
+    """Mean token cross-entropy in f32 (f64 for f64 logits).  logits
+    (B,S,V), labels (B,S)."""
+    lf = logits.to(acc_dtype(logits.dtype))
     if is_dtensor(logits):
-        return _chunk_loss_sharded(logits.float(), labels, z_loss) / labels.numel()
-    lf = logits.float()
+        return _chunk_loss_sharded(lf, labels, z_loss) / labels.numel()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     loss = lse - gold
@@ -402,7 +410,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_loss(xc: torch.Tensor, w_out: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
-    logits = (xc @ w_out).float()           # the product in the parameter dtype
+    logits = xc @ w_out                     # the product in the parameter dtype
+    logits = logits.to(acc_dtype(logits.dtype))
     if is_dtensor(logits):
         return _chunk_loss_sharded(logits, lc)
     lse = torch.logsumexp(logits, dim=-1)
@@ -466,7 +475,7 @@ def chunked_lm_loss(x: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
     B, S, _ = x.shape
     if S % chunk != 0 or S <= chunk:
         return cross_entropy_loss(x @ w_out, labels)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = torch.zeros((), dtype=acc_dtype(x.dtype), device=x.device)
     for c in range(0, S, chunk):
         total = total + checkpoint(_chunk_loss, x[:, c:c + chunk], w_out,
                                    labels[:, c:c + chunk], use_reentrant=False)

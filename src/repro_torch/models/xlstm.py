@@ -134,12 +134,12 @@ def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> XLSTM:
 
 def _head_norm(y: torch.Tensor, gn: torch.Tensor, H: int, eps: float,
                dtype: torch.dtype) -> torch.Tensor:
-    """Per-head RMS norm of y (B, S, H * hd) in f32, times ``gn``, cast to
-    ``dtype``."""
+    """Per-head RMS norm of y (B, S, H * hd) in f32 (f64 for f64 y),
+    times ``gn``, cast to ``dtype``."""
     B, S, Dy = y.shape
-    yf = y.float().reshape(B, S, H, Dy // H)
+    yf = y.to(L.acc_dtype(y.dtype)).reshape(B, S, H, Dy // H)
     y = (yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)).reshape(B, S, Dy)
-    return (y * gn.float()).to(dtype)
+    return (y * gn.to(yf.dtype)).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +147,9 @@ def _head_norm(y: torch.Tensor, gn: torch.Tensor, H: int, eps: float,
 # ---------------------------------------------------------------------------
 
 def _mlstm_qkvif(cfg: ArchConfig, p: MLSTM, x: torch.Tensor):
-    """q, k, v (B,S,H,hd), the input and forget preactivations (B,S,H) f32,
-    the output gate's z and the pre-conv branch xm (B,S,d_inner)."""
+    """q, k, v (B,S,H,hd), the input and forget preactivations (B,S,H) in
+    the gate parameters' dtype (f32 but in an f64 reference run), the
+    output gate's z and the pre-conv branch xm (B,S,d_inner)."""
     d_inner, H, hd = dims(cfg)
     up = x @ p.w_up
     xm, z = up[..., :d_inner], up[..., d_inner:]
@@ -156,7 +157,8 @@ def _mlstm_qkvif(cfg: ArchConfig, p: MLSTM, x: torch.Tensor):
     v = xm * v                      # the value path gated by the pre-conv branch
     # the reference's product: x's dtype times w_if rounded to it, summed
     # and returned in f32 (each product of two bf16 values is exact in f32)
-    gates = xm.float() @ p.w_if.to(xm.dtype).float() + p.b_gates
+    acc = p.b_gates.dtype
+    gates = xm.to(acc) @ p.w_if.to(xm.dtype).to(acc) + p.b_gates
     B, S = x.shape[:2]
     q, k, v = (t.reshape(B, S, H, hd) for t in (q, k, v))
     return q, k, v, gates[..., :H], gates[..., H:], z, xm
@@ -180,7 +182,7 @@ def mlstm_parallel(cfg: ArchConfig, p: MLSTM, x: torch.Tensor) -> torch.Tensor:
     causal = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
     logD = logD.masked_fill(~causal, float("-inf"))
     m = torch.amax(logD, dim=-1)                                         # (B,H,S)
-    scores = torch.einsum("bshd,bthd->bhst", q, k).float()
+    scores = torch.einsum("bshd,bthd->bhst", q, k).to(i_pre.dtype)
     scores = scores * hd ** -0.5 * torch.exp(logD - m[..., None])
     norm = torch.maximum(scores.sum(-1).abs(), torch.exp(-m))           # (B,H,S)
     y = torch.einsum("bhst,bthd->bshd", (scores / norm[..., None]).to(v.dtype), v)
@@ -208,7 +210,8 @@ def mlstm_chunkwise(cfg: ArchConfig, p: MLSTM, x: torch.Tensor,
     def chunks(t):     # (B, S, ...) -> (B, nc, Q, ...)
         return t.reshape(B, nc, Q, *t.shape[2:])
 
-    qc, kc, vc = chunks(q.float()), chunks(k.float() * hd ** -0.5), chunks(v.float())
+    acc = i_pre.dtype
+    qc, kc, vc = chunks(q.to(acc)), chunks(k.to(acc) * hd ** -0.5), chunks(v.to(acc))
     ic = chunks(i_pre)                                                   # (B,nc,Q,H)
     b = torch.cumsum(chunks(F.logsigmoid(f_pre)), dim=2)                 # inclusive
     b_tot = b[:, :, -1]                                                  # (B,nc,H)
@@ -219,9 +222,9 @@ def mlstm_chunkwise(cfg: ArchConfig, p: MLSTM, x: torch.Tensor,
     lw = lw.masked_fill(~tri, float("-inf"))                             # (B,nc,H,Q,Q)
     m_intra = torch.amax(lw, dim=-1)                                     # (B,nc,H,Q)
 
-    C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
-    m = torch.full((B, H), _NEG, dtype=torch.float32, device=x.device)
+    C = torch.zeros((B, H, hd, hd), dtype=acc, device=x.device)
+    n = torch.zeros((B, H, hd), dtype=acc, device=x.device)
+    m = torch.full((B, H), _NEG, dtype=acc, device=x.device)
     ys = []
     for c in range(nc):
         qh, kh, vh = (t[:, c].transpose(1, 2) for t in (qc, kc, vc))     # (B,H,Q,hd)
@@ -266,15 +269,16 @@ def mlstm_step(cfg: ArchConfig, p: MLSTM, x: torch.Tensor, cell: Cell
     c = L.silu(torch.einsum("bkc,kc->bc", window, p.conv_w))[:, None]
     q, k, v = (c @ p.w_qkv).split(d_inner, dim=-1)
     v = xm * v
-    gates = xm.float() @ p.w_if + p.b_gates
+    acc = p.b_gates.dtype
+    gates = xm.to(acc) @ p.w_if + p.b_gates
     i_pre, f_pre = gates[:, 0, :H], gates[:, 0, H:]                      # (B,H)
     logf = F.logsigmoid(f_pre)
     m_new = torch.maximum(logf + cell["m"], i_pre)
     fs = torch.exp(logf + cell["m"] - m_new)[..., None]
     is_ = torch.exp(i_pre - m_new)[..., None]
-    qh = q.reshape(B, H, hd).float()
-    kh = k.reshape(B, H, hd).float() * hd ** -0.5
-    vh = v.reshape(B, H, hd).float()
+    qh = q.reshape(B, H, hd).to(acc)
+    kh = k.reshape(B, H, hd).to(acc) * hd ** -0.5
+    vh = v.reshape(B, H, hd).to(acc)
     C = fs[..., None] * cell["C"] + is_[..., None] * (vh[..., :, None] * kh[..., None, :])
     n = fs * cell["n"] + is_ * kh
     num = (C @ qh[..., None])[..., 0]                                    # (B,H,hd)
@@ -337,11 +341,12 @@ def slstm_forward(cfg: ArchConfig, p: SLSTM, x: torch.Tensor, return_state: bool
         return _slstm_sharded(cfg, p, x, return_state)
     B, S, D = x.shape
     H = cfg.n_heads
-    xg = _causal_conv(x, p.conv_w).float() @ p.w_gates + p.b_gates      # (B,S,4D)
+    acc = p.w_gates.dtype
+    xg = _causal_conv(x, p.conv_w).to(acc) @ p.w_gates + p.b_gates      # (B,S,4D)
     xg = _head_major(xg.transpose(0, 1), H, 4)                           # (S,H,B,4hd)
-    zeros = torch.zeros((H, B, D // H), dtype=torch.float32, device=x.device)
+    zeros = torch.zeros((H, B, D // H), dtype=acc, device=x.device)
     state = {"h": zeros, "c": zeros, "n": zeros, "m": torch.full_like(zeros, _NEG)}
-    one = torch.ones((), dtype=torch.float32, device=x.device)
+    one = torch.ones((), dtype=acc, device=x.device)
     rT = _recurrent_weights(p)
     hs = []
     for t in range(S):
@@ -388,8 +393,9 @@ def slstm_step(cfg: ArchConfig, p: SLSTM, x: torch.Tensor, cell: Cell
     H = cfg.n_heads
     window = torch.cat([cell["conv"], x], dim=1)
     c = L.silu(torch.einsum("bkc,kc->bc", window, p.conv_w))
-    xg = _head_major(c.float() @ p.w_gates + p.b_gates, H, 4)
-    one = torch.ones((), dtype=torch.float32, device=x.device)
+    acc = p.w_gates.dtype
+    xg = _head_major(c.to(acc) @ p.w_gates + p.b_gates, H, 4)
+    one = torch.ones((), dtype=acc, device=x.device)
     state = {k: _head_major(cell[k], H) for k in ("h", "c", "n", "m")}
     h, st = _slstm_cell(_recurrent_weights(p), xg, state, one)
     st = {k: v.transpose(0, 1).reshape(B, D) for k, v in st.items()}

@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 
 from .. import resolve_device
+from ..core.matchmaker import HBM_GB_PER_CHIP  # HBM3, GB
 from ..configs.base import ArchConfig, ShapeConfig, get_config, get_shape, registry, smoke_of
 from ..models.model import (PORTED_FAMILIES, bundle_for, memory_estimate, model_flops,
                             param_count)
@@ -48,7 +49,6 @@ __all__ = ["PEAK_FLOPS", "HBM_BW", "HBM_GB_PER_CHIP", "ASSUMED_MFU",
 # NVIDIA H100 SXM (data sheet, dense, 700 W): assumptions of the cost model
 PEAK_FLOPS = 989e12      # bf16 tensor cores, FLOP/s
 HBM_BW = 3.35e12         # HBM3, bytes/s
-HBM_GB_PER_CHIP = 80.0   # HBM3, GB
 ASSUMED_MFU = 0.4        # the reference's assumption
 
 # the reference's _REAL_TRAIN_PARAM_LIMIT: real compute at or below this

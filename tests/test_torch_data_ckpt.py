@@ -291,6 +291,8 @@ def test_train_cli_direct_mode_and_via_lidc():
                          capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     assert "step     2 loss" in out.stdout and "done: 3 steps on cpu" in out.stdout
-    out = subprocess.run(base + ["--via-lidc"], capture_output=True, text=True, timeout=300,
-                         env=env)
-    assert out.returncode == 2 and "repro_torch.runtime.fleet" in out.stderr
+    out = subprocess.run(base + ["--via-lidc", "--device", "cpu", "--clusters", "3",
+                                 "--steps", "10"],
+                         capture_output=True, text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "state: Completed" in out.stdout and '"real_compute": true' in out.stdout

@@ -295,7 +295,17 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.runtime.executors, repro_torch.runtime.fleet, "
             "repro_torch.runtime.pipeline, repro_torch.collectives, "
             "repro_torch.models.sharding, repro_torch.launch.mesh, "
-            "repro_torch.optim.compress, repro_torch.examples.train_100m; "
+            "repro_torch.optim.compress, repro_torch.examples.train_100m, "
+            "repro_torch.core, repro_torch.core.names, repro_torch.core.reasons, "
+            "repro_torch.core.resilience, repro_torch.core.packets, repro_torch.core.tables, "
+            "repro_torch.core.forwarder, repro_torch.core.demand, repro_torch.core.strategy, "
+            "repro_torch.core.routing, repro_torch.core.jobs, repro_torch.core.validation, "
+            "repro_torch.core.scheduler, repro_torch.core.matchmaker, "
+            "repro_torch.core.compute_plane, repro_torch.core.cluster, "
+            "repro_torch.core.gateway, repro_torch.core.overlay, repro_torch.datalake, "
+            "repro_torch.datalake.store, repro_torch.datalake.lake, "
+            "repro_torch.examples.quickstart, repro_torch.examples.multicluster_failover; "
+            "from repro_torch.runtime.fleet import build_fleet, resilient_run; "
             "bad = sorted(m for m, mod in sys.modules.items() if mod is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))); print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
