@@ -212,7 +212,28 @@
    attention launches per trained step; 256 tokens out, 28 prefill
    launches a request and 28 decode launches a step, no other kernel.
    Prints each job's virtual and wall seconds, the Interests, Data and
-   Nacks the edge saw, and the attention kernels' device us per step.
+   Nacks the edge saw, and the attention kernels' device us per step;
+19. carries named sessions and named KV across a cluster failure, through
+   the port's serving plane, fetcher and overlay (nothing of ``repro``):
+   (a) ``repro_torch.examples.serving_failover`` (three clusters, a
+   64-token prompt, 80 tokens, the serving cluster failed at virtual
+   1.5 s), its stream held to the ``token_at`` oracle and its numbers to
+   the CPU's (``FAILOVER_CPU``); (b) a real qwen3-1.7b session (full width
+   and depth, bf16): engine A serves one 1,000-token prompt, its
+   ``kv_checkpoint`` after the 16th token is serialised with ``np.savez``,
+   published under ``datalake.kv.session_kv_name`` into a two-cluster
+   ``LidcSystem``'s lake, the first cluster failed, the object fetched by
+   name with ``SegmentFetcher`` from the survivor's node and restored into
+   a fresh engine B, which decodes the last 16 tokens; gates: the fetched
+   bytes' sha256 equal to the published bytes', B's tokens equal to A's
+   last 16 (A runs on unbroken), 28 ``flash_attention`` launches in A and
+   0 in B, 28 ``flash_decode`` launches a decode step in both, no other
+   kernel; prints the object's bytes and segments, the fetch's virtual and
+   wall seconds and the device us of a decode step in A and in B; (c)
+   ``repro_torch.examples.serve_batched`` on the card (lidc-demo): 10
+   engine requests, then 6 serve jobs load-shared over 3 clusters, each
+   ``Completed``, on at least 2 clusters, 4 prefill launches a request and
+   4 decode launches a step.
 
 Each serving phase sets every kernel's launch count to 0 before its
 prefill and before its decode steps, and checks the counts after; its
@@ -346,6 +367,16 @@ RANKS_TIMEOUT = 600
 # new tokens), on a one-card cluster at the endpoints' own 4 slots of 64
 OVERLAY_ARCH = "lidc-demo"
 OVERLAY_SERVE = ("qwen3-1.7b", 8, 32)
+# phase 19: (a) repro_torch.examples.serving_failover's numbers as the CPU
+# gives them (the virtual clock is the same on every host); (b) a real
+# session's KV carried across a cluster failure: (arch, prompt tokens, new
+# tokens, the token after which A's KV is checkpointed, engine slots,
+# engine max_seq); (c) repro_torch.examples.serve_batched's arch
+FAILOVER_CPU = {"survivor": "pod2", "kv_bytes_fetched": 11665408.0, "kv_fetches": 1,
+                "resubmits": 1, "tokens_done": 80, "killed_at": 1.75, "delivered_at_kill": 25,
+                "finished_at": 5.870499999999926}
+SESSION_KV_RUN = ("qwen3-1.7b", 1000, 32, 16, 4, 2048)
+BATCHED_ARCH = "lidc-demo"
 
 
 class Phase:
@@ -2136,6 +2167,240 @@ def overlay_on_card(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: named sessions and named KV across a cluster failure
+# ---------------------------------------------------------------------------
+
+def failover_numbers(out) -> dict:
+    """The numbers of a ``serving_failover.run()`` that ``FAILOVER_CPU``
+    holds."""
+    return {"survivor": out["survivor"], "kv_bytes_fetched": out["stats"]["kv_bytes_fetched"],
+            "kv_fetches": out["stats"]["kv_fetches"], "resubmits": out["result"].resubmits,
+            "tokens_done": out["ckpt"]["tokens_done"], "killed_at": out["killed"]["at"],
+            "delivered_at_kill": out["killed"]["delivered"],
+            "finished_at": out["result"].finished_at}
+
+
+def kv_to_bytes(np, state) -> bytes:
+    """A ``ServeEngine.kv_checkpoint`` as ``np.savez`` bytes, with no pickle
+    (an ``eos`` of None is stored as -1)."""
+    import io
+    buf = io.BytesIO()
+    np.savez(buf, k=state["k"], v=state["v"], prompt=np.asarray(state["prompt"], np.int64),
+             out=np.asarray(state["out"], np.int64), max_new=np.int64(state["max_new"]),
+             eos=np.int64(-1 if state["eos"] is None else state["eos"]),
+             priority=np.int64(state["priority"]))
+    return buf.getvalue()
+
+
+def kv_from_bytes(np, blob) -> dict:
+    """The checkpoint ``kv_to_bytes`` wrote, ready for ``ServeEngine.restore``."""
+    import io
+    with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+        eos = int(z["eos"])
+        return {"k": z["k"], "v": z["v"], "prompt": [int(t) for t in z["prompt"]],
+                "out": [int(t) for t in z["out"]], "max_new": int(z["max_new"]),
+                "eos": None if eos < 0 else eos, "priority": int(z["priority"])}
+
+
+def carry_session_kv(np, make_engine, prompt, new_tokens, split, stage=None,
+                     sid="phase19-session"):
+    """Phase 19 (b) at any size.  Engine A serves ``prompt`` alone; after its
+    ``split``-th token, its KV checkpoint is published as named Data under
+    ``session_kv_name(sid)`` into the lake of a two-cluster port overlay, the
+    first cluster fails, the survivor's node fetches the object by name
+    through ``SegmentFetcher`` (as the serving plane fetches a session's KV
+    on resume), and a fresh engine B restores it and decodes the rest; A then
+    runs on, unbroken.  ``stage(label)`` is a context around each engine run
+    ("a_first", "b", "a_rest").  Returns both streams and the transfer's
+    numbers."""
+    import hashlib
+
+    from repro_torch.core import LidcSystem
+    from repro_torch.datalake import SegmentFetcher
+    from repro_torch.datalake.kv import session_kv_name
+
+    stage = stage or (lambda label: contextlib.nullcontext())
+    a = make_engine()
+    req = a.submit(list(prompt), max_new=new_tokens)
+    with stage("a_first"):
+        a.run(max_steps=split - 1)      # the prefill's token, then one a step
+    check(len(req.out) == split and not req.done,
+          f"A holds {len(req.out)} tokens (done {req.done}), expected {split}")
+    state = a.kv_checkpoint(req)
+    blob = kv_to_bytes(np, state)
+    published = hashlib.sha256(blob).hexdigest()
+
+    system = LidcSystem()
+    first, survivor = (system.add_cluster(f"pod{i}", chips=1) for i in range(2))
+    system.net.run(until=0.25)          # the clusters' routes reach the edge
+    name = session_kv_name(sid)
+    system.lake.put_bytes(name, blob)
+    system.overlay.fail_cluster(first.name)
+    got = {}
+    t0 = time.perf_counter()
+    fetcher = SegmentFetcher(system.net, survivor.node, name, verify_key=system.lake.key,
+                             on_complete=lambda b: got.setdefault("blob", b),
+                             on_error=lambda r: got.setdefault("error", r)).start()
+    system.net.run()
+    wall = time.perf_counter() - t0
+    check("blob" in got, f"the fetch of {name} failed: {got.get('error', fetcher.state)}")
+    fetched = hashlib.sha256(got["blob"]).hexdigest()
+    check(fetched == published, f"fetched sha256 {fetched}, published {published}")
+
+    b = make_engine()
+    restored = b.restore(kv_from_bytes(np, got["blob"]))
+    with stage("b"):
+        b.run()
+    with stage("a_rest"):
+        a.run()
+    check(req.done and restored.done, f"A done {req.done}, B done {restored.done}")
+    return {"a": list(req.out), "b": list(restored.out), "split": split,
+            "kv_tokens": int(state["k"].shape[1]), "bytes": len(blob),
+            "segments": int((fetcher.manifest or {}).get("segments", 0)),
+            "published_sha256": published, "fetched_sha256": fetched,
+            "virtual_s": fetcher.stats["duration"], "wall_s": wall,
+            "fetch": {k: fetcher.stats[k] for k in ("segments", "retransmissions",
+                                                    "timeouts", "max_cwnd")},
+            "survivor": survivor.name, "a_steps": a.decode_steps, "b_steps": b.decode_steps}
+
+
+def named_sessions_on_card(torch, np, dev):
+    """Phase 19.  (a) the serving plane's failover example, (b) a real
+    qwen3-1.7b session's KV carried across a cluster failure, (c) the
+    batched-serving example on the card.  Returns the attention kernels'
+    launches in each run."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import serve_batched, serving_failover
+    from repro_torch.models import bundle_for
+    from repro_torch.runtime import executors as ex
+    from repro_torch.serve.engine import ServeEngine
+
+    check(not any(m == "repro" or m.startswith("repro.") for m in sys.modules),
+          "the JAX package is loaded")
+    attention = ("flash_attention", "flash_decode")
+
+    # (a) the modeled session, on the virtual clock
+    t0 = time.perf_counter()
+    f = serving_failover.run(verbose=False)
+    wall = time.perf_counter() - t0
+    got = failover_numbers(f)
+    print(f"  (a) serving_failover: {f['killed']['name']} failed at virtual "
+          f"{got['killed_at']!r} s with {got['delivered_at_kill']}/{serving_failover.MAX_NEW} "
+          f"tokens delivered; resumed on {got['survivor']}, named KV fetched "
+          f"{got['kv_bytes_fetched'] / 2**20:.4f} MiB in {got['kv_fetches']} fetch, "
+          f"{got['resubmits']} resubmits, final checkpoint tokens_done={got['tokens_done']}, "
+          f"session finished at virtual {got['finished_at']!r} s; wall {wall:.3f} s")
+    check(f["result"].stream() == f["want"], "the resumed stream differs from token_at's")
+    check(got == FAILOVER_CPU, f"the failover's numbers {got} differ from the CPU's "
+                               f"{FAILOVER_CPU}")
+    del f
+    gc.collect()
+
+    # (b) a real session's KV, on the card
+    arch, plen, new, split, slots, max_seq = SESSION_KV_RUN
+    cfg = get_config(arch)
+    params = bundle_for(cfg).init(cfg, 0, device=dev)
+    prompt = np.random.default_rng(19).integers(0, cfg.vocab, plen).tolist()
+    stages = {}
+
+    @contextlib.contextmanager
+    def stage(label):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        stages[label] = {"launches": launches_now(), "us": wrapper_us(events),
+                         "device_us": sum(end - start for _, start, end in events)}
+
+    carried = carry_session_kv(
+        np, lambda: ServeEngine(cfg, params, max_batch=slots, max_seq=max_seq, device=dev),
+        prompt, new, split, stage=stage)
+    a_steps, b_steps = carried["a_steps"], carried["b_steps"]
+    print(f"  (b) {arch}: a {plen}-token prompt, {new} greedy tokens; KV after token "
+          f"{split}: {carried['kv_tokens']} positions, {carried['bytes']} B in "
+          f"{carried['segments']} segments, sha256 {carried['published_sha256'][:16]}...; "
+          f"fetched on {carried['survivor']} after the first cluster failed in virtual "
+          f"{carried['virtual_s']!r} s, wall {carried['wall_s']:.3f} s ({carried['fetch']})")
+    check(carried["b"][:split] == carried["a"][:split], "B's restored tokens differ from A's")
+    check(carried["b"][split:] == carried["a"][split:],
+          f"B decoded {carried['b'][split:]}, A {carried['a'][split:]}")
+    check(a_steps == new - 1 and b_steps == new - split,
+          f"A ran {a_steps} decode steps, B {b_steps}")
+    launched = {"session_a": {k: stages["a_first"]["launches"][k]
+                              + stages["a_rest"]["launches"][k] for k in kernels()},
+                "session_b": stages["b"]["launches"]}
+    for run_name, steps, prefills in (("session_a", a_steps, 1), ("session_b", b_steps, 0)):
+        n = launched[run_name]
+        check(n["flash_attention"] == prefills * cfg.n_layers
+              and n["flash_decode"] == steps * cfg.n_layers
+              and all(n[k] == 0 for k in kernels() if k not in attention),
+              f"{run_name}: launches {n}, expected {prefills} x {cfg.n_layers} prefill and "
+              f"{steps} x {cfg.n_layers} decode")
+    print(f"  (b) a_first: the {plen}-token prefill and {split - 1} decode steps, device us "
+          f"{stages['a_first']['device_us']:.2f} (flash_attention "
+          f"{stages['a_first']['us']['flash_attention']:.2f}, the prefill's {cfg.n_layers} "
+          f"launches)")
+    for label, steps in (("a_rest", new - split), ("b", b_steps)):
+        s = stages[label]
+        print(f"  (b) {label}: {steps} decode steps, device us a step "
+              f"{s['device_us'] / steps:.2f} (flash_decode {s['us']['flash_decode'] / steps:.2f})")
+    print(f"  (b) B's {new - split} tokens equal A's last {new - split}, bit for bit; "
+          f"launches {launched}")
+    del params, carried, stages
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) batched serving, the engine and serve jobs through an overlay
+    engines = []
+
+    class KeptEngine(ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    with mock.patch.object(ex, "ServeEngine", KeptEngine), \
+            mock.patch.object(serve_batched, "ServeEngine", KeptEngine):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = serve_batched.run(dev, arch=BATCHED_ARCH, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = launches_now()
+    demo = get_config(BATCHED_ARCH)
+    eng = out["engine"]
+    print(f"  (c) serve_batched ({BATCHED_ARCH}): the engine served {eng['requests']} requests, "
+          f"{eng['tokens_out']} tokens in {eng['decode_steps']} decode steps "
+          f"({eng['tokens_out'] / eng['decode_steps']:.2f} tokens a step); {serve_batched.JOBS} "
+          f"serve jobs on {out['clusters']}; virtual {out['virtual_s']!r} s, wall {wall:.2f} s")
+    for h in out["handles"]:
+        _job_done("serve_batched job", h)
+    check(eng["requests"] == serve_batched.REQUESTS and len(out["handles"]) == serve_batched.JOBS
+          and len(out["clusters"]) >= 2,
+          f"{eng['requests']} requests, {len(out['handles'])} jobs on {out['clusters']}")
+    prefills = serve_batched.REQUESTS + sum(h.result["requests"] for h in out["handles"])
+    steps = sum(e.decode_steps for e in engines)
+    check(len(engines) == 1 + serve_batched.JOBS and n["flash_attention"] == prefills * demo.n_layers
+          and n["flash_decode"] == steps * demo.n_layers
+          and all(n[k] == 0 for k in kernels() if k not in attention),
+          f"serve_batched: {len(engines)} engines, launches {n}, expected {prefills} x "
+          f"{demo.n_layers} prefill and {steps} x {demo.n_layers} decode")
+    launched["serve_batched"] = n
+    check(not any(m == "repro" or m.startswith("repro.") for m in sys.modules),
+          "the JAX package was loaded")
+    del engines, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {run_name: {k: v[k] for k in attention} for run_name, v in launched.items()}
+    print(f"  attention launches in phase 19: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: train qwen3-moe-30b-a3b (4 layers) through run_training
 # ---------------------------------------------------------------------------
 
@@ -3864,6 +4129,14 @@ def main() -> int:
                         "flash_attention", "flash_attention_bwd", "flash_decode"):
                     r["phase18"] = {job: n[r["name"]] for job, n in overlay.items()
                                     if r["name"] in n}
+
+        with Phase("phase 19: named sessions and named KV across a cluster failure"):
+            print(f"  on {card_line()}")
+            sessions = named_sessions_on_card(torch, np, dev)
+            for r in rows:
+                if r["shape"].startswith(f"{SESSION_KV_RUN[0]} ") and r["name"] in sessions[
+                        "session_a"]:
+                    r["phase19"] = {run_name: n[r["name"]] for run_name, n in sessions.items()}
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

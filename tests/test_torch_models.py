@@ -304,8 +304,19 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.core.compute_plane, repro_torch.core.cluster, "
             "repro_torch.core.gateway, repro_torch.core.overlay, repro_torch.datalake, "
             "repro_torch.datalake.store, repro_torch.datalake.lake, "
-            "repro_torch.examples.quickstart, repro_torch.examples.multicluster_failover; "
+            "repro_torch.examples.quickstart, repro_torch.examples.multicluster_failover, "
+            "repro_torch.datalake.kv, repro_torch.datalake.fetch, "
+            "repro_torch.datalake.replication, repro_torch.serve, repro_torch.serve.plane, "
+            "repro_torch.workflow, repro_torch.workflow.dag, repro_torch.workflow.faults, "
+            "repro_torch.workflow.apps, repro_torch.workflow.engine, "
+            "repro_torch.workflow.taskmap, repro_torch.examples.serving_failover, "
+            "repro_torch.examples.serve_batched, repro_torch.examples.genomics_workflow, "
+            "repro_torch.examples.elastic_map, repro_torch.examples.hot_dataset_replication, "
+            "repro_torch.examples.multitenant_scheduling; "
             "from repro_torch.runtime.fleet import build_fleet, resilient_run; "
+            "from repro_torch.serve import ServeEngine, ServingPlane; "
+            "from repro_torch.datalake import SegmentFetcher, fetch, ReplicationManager, "
+            "ReplicationPolicy; "
             "bad = sorted(m for m, mod in sys.modules.items() if mod is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))); print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
