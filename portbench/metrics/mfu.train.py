@@ -1,0 +1,15 @@
+"""mfu.train: the model FLOPs of the window's training steps (6·N·D plus
+causal attention, the port's ``model_flops`` as copied in the yardstick)
+over the window's seconds and 989 TFLOP/s, in %."""
+
+from portbench import yardstick as y
+
+
+def read(record):
+    s = record["spec"]
+    rows, seq = record["rows"], record["seq"]
+    flops = len(record["steps"]) * y.model_flops_train(s, rows, seq)
+    secs = record["window"]["seconds"]
+    record.setdefault("bases", []).append(
+        f"mfu.train: {flops!r} model FLOPs over {secs!r} s at {y.PEAK_FLOPS['bfloat16']!r}")
+    return 100.0 * flops / secs / y.PEAK_FLOPS["bfloat16"]
