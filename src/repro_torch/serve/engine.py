@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, spans
 from ..configs.base import ArchConfig
 from ..models.model import bundle_for
 
@@ -54,6 +54,7 @@ class Request:
     out: List[int] = field(default_factory=list)
     done: bool = False
     submitted_at: float = 0.0                 # host clock at submit
+    admitted_at: Optional[float] = None       # host clock as its prefill starts
     first_token_at: Optional[float] = None    # host clock at the first token
 
 
@@ -102,12 +103,18 @@ class ServeEngine:
         steps = 0
         while (self.queue or any(s is not None for s in self.slots)) \
                 and steps < max_steps:
-            done.extend(self._admit())
-            done.extend(self.step())
+            with (spans.span("engine.iteration", queued=len(self.queue), busy=self._busy())
+                  if spans.on else spans.OFF):
+                with spans.span("engine.admit") if spans.on else spans.OFF:
+                    done.extend(self._admit())
+                done.extend(self.step())
             steps += 1
         return done
 
     # -- internals --------------------------------------------------------------
+    def _busy(self) -> int:
+        return sum(s is not None for s in self.slots)
+
     def _admit(self) -> List[Request]:
         """Fill free slots from the queue in priority order (stable within
         a class).  Returns requests that finished *at prefill* (max_new
@@ -125,7 +132,7 @@ class ServeEngine:
 
     @torch.no_grad()
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
-        t0 = time.perf_counter()
+        t0 = req.admitted_at = time.perf_counter()
         toks = torch.tensor([req.prompt], dtype=torch.int32, device=self.device)
         logits, c1 = self._bundle.prefill(self.cfg, self.params, toks,
                                           max_seq=self.max_seq)
@@ -133,9 +140,14 @@ class ServeEngine:
         self.cache["k"][:, slot] = c1["k"][:, 0]
         self.cache["v"][:, slot] = c1["v"][:, 0]
         self.cache["index"][slot] = len(req.prompt)
+        t_sync = time.perf_counter() if spans.on else 0.0
         nxt = int(torch.argmax(logits[0, -1]))
         req.first_token_at = time.perf_counter()
         self.prefill_s += req.first_token_at - t0
+        if spans.on:
+            p = spans.record("engine.prefill", t0, req.first_token_at, rid=req.rid, slot=slot,
+                             tokens=len(req.prompt))
+            spans.record("engine.sync", t_sync, req.first_token_at, parent=p)
         req.out.append(nxt)
         self.tokens_out += 1
         self.last_tokens[slot, 0] = nxt
@@ -160,9 +172,15 @@ class ServeEngine:
         tokens = torch.from_numpy(self.last_tokens).to(self.device)
         logits, self.cache = self._bundle.decode_step(self.cfg, self.params,
                                                       self.cache, tokens)
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32).cpu().numpy()
-        self.decode_s += time.perf_counter() - t0
+        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+        t_sync = time.perf_counter() if spans.on else 0.0
+        nxt = nxt.cpu().numpy()
+        t1 = time.perf_counter()
+        self.decode_s += t1 - t0
         self.decode_steps += 1
+        if spans.on:
+            p = spans.record("engine.decode", t0, t1, busy=self._busy())
+            spans.record("engine.sync", t_sync, t1, parent=p)
         finished: List[Request] = []
         for i, req in enumerate(self.slots):
             if req is None:

@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import spans
 from ..collectives import pmean
 from ..configs.base import ArchConfig
 from ..models.model import bundle_for, model_module
@@ -98,8 +99,12 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, remat: str = "none",
 
     def loss_and_grads(params, batch: Batch):
         leaves = list(params.parameters())
-        loss = bundle.loss_fn(cfg, params, batch, remat=remat)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        with spans.span("train.forward") if spans.on else spans.OFF:
+            loss = bundle.loss_fn(cfg, params, batch, remat=remat)
+        # autograd launches the backward's kernels from threads of its own
+        with spans.span("train.backward") if spans.on else spans.OFF:
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), grads
 
     def grads_of(params, batch: Batch):
         if microbatch <= 1:
@@ -133,7 +138,8 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, *, remat: str = "none",
 
     def train_step(state: State, batch: Batch) -> Tuple[State, Dict[str, torch.Tensor]]:
         loss, grads = grad_fn(state["params"], batch)
-        opt, metrics = optimizer.update(grads, state["opt"], state["params"])
+        with spans.span("train.optimizer") if spans.on else spans.OFF:
+            opt, metrics = optimizer.update(grads, state["opt"], state["params"])
         return {"params": state["params"], "opt": opt}, {"loss": loss, **metrics}
 
     return train_step
