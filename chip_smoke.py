@@ -62,7 +62,10 @@
    decode at a 0-dim length (launches and device us from phase 13); the f32
    paths of both attention kernels (the CUDA cores, exact f32) at
    seamless's encoder shape and at lidc-100m's training layer (launches
-   and device us from phase 14), beside SDPA in f32; every kernel
+   and device us from phase 14), beside SDPA in f32; the fused AdamW
+   update at phase 8's whole leaf set (qwen3-1.7b, 310 leaves), one step
+   held against the plain loop in ulps, then beside its byte bound, the
+   plain loop and torch's fused AdamW; every kernel
    also beside the time of a one-element PyTorch op, the floor of any
    launch;
 8. trains qwen3-1.7b at full width and depth (1.72 B params, bf16, f32
@@ -71,7 +74,9 @@
    kernel path's gradients against the plain bf16 and f32 paths on one
    batch, and bit-equal when run twice; 28 forward and 28 backward
    attention launches per step (56 forward under remat "full" and
-   "dots"); finite losses that fall; the
+   "dots") and 3 ``adamw_update`` launches (every leaf bf16: one dtype
+   group), its 1,720,574,976 parameters each once a step; finite losses
+   that fall; the
    latest checkpoint restored bit-equal, and two further steps from it and
    from the live state giving the same losses bit for bit.  Prints ms per
    step, tokens/s, the model-FLOPs share of 989 TFLOP/s, peak memory and the
@@ -83,8 +88,9 @@
    another, which must resume from step 5 and end on a loss bit-equal to
    the whole run's, under checkpoint names ``train-<job signature>``; the
    serve executor on 8 requests of 32 tokens (8 slots, ``max_seq`` 2048);
-   the blast executor on the host.  Gates: the attention launches per
-   trained step, per prefill and per decode step.  Prints each job's wall
+   the blast executor on the host.  Gates: the attention and AdamW
+   launches per trained step (no AdamW launch in serving), per prefill and
+   per decode step.  Prints each job's wall
    time, the cost model's virtual step times and memory estimate beside the
    measured ones, and the attention kernels' device us per step;
 10. trains qwen3-moe-30b-a3b at full width, depth cut to 4 layers (3.11 B
@@ -97,7 +103,11 @@
    the two bf16 paths it is a coin flip, ``scripts/moe_loss_spread.py``),
    and bit-equal when run twice;
    4 forward and 4 backward launches per step of ``moe_router`` and of
-   ``flash_attention`` (8 forward under remat "full" and "dots"); finite
+   ``flash_attention`` (8 forward under remat "full" and "dots"), and in
+   every training phase from here on 2 ``adamw_update`` launches per dtype
+   of the leaves and 1 a step (5 here, the router's f32 beside bf16; 5 for
+   zamba2's and xLSTM's f32 SSM and gate parameters; 3 for seamless,
+   lidc-100m and lidc-demo), with every parameter once a step; finite
    losses that fall; the step-5 checkpoint restored bit-equal to the live
    state it was taken from, and steps 6-10 from it giving the run's losses
    and final state bit for bit.  Prints ms per step, tokens/s, the
@@ -440,19 +450,20 @@ def row_rel_err(out, want) -> float:
     return float(((out - want).norm(dim=-1) / want.norm(dim=-1)).max())
 
 
-def time_ms(torch, fn, flush, reps: int = 25, warmup: int = 3) -> float:
+def time_ms(torch, fn, flush, reps: int = 25, warmup: int = 3,
+            sleep: int = SLEEP_CYCLES) -> float:
     """Median device time of one call, CUDA events around each call.  The
     L2 cache is flushed before every call by ``flush()``, as the serving
     loop finds it (each layer's weights and cache slice evict the last
-    layer's), and the stream is held busy while the host enqueues the call,
-    so that the events time the device and not the host's launch
-    overhead."""
+    layer's), and the stream is held busy (``sleep`` cycles) while the host
+    enqueues the call, so that the events time the device and not the
+    host's launch overhead."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -465,6 +476,7 @@ def time_ms(torch, fn, flush, reps: int = 25, warmup: int = 3) -> float:
 
 def kernels():
     """name -> wrapper of every kernel; each wrapper counts its launches."""
+    from repro_torch.kernels.adamw import adamw_update
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.moe_gating import moe_gating, moe_router, moe_router_bwd
@@ -472,7 +484,8 @@ def kernels():
     return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
             "flash_decode": flash_decode, "moe_gating": moe_gating,
             "moe_router": moe_router, "moe_router_bwd": moe_router_bwd,
-            "ssd_state_scan": ssd_state_scan, "ssd_state_scan_bwd": ssd_state_scan_bwd}
+            "ssd_state_scan": ssd_state_scan, "ssd_state_scan_bwd": ssd_state_scan_bwd,
+            "adamw_update": adamw_update}
 
 
 # wrapper -> a part of the name of every CUDA kernel it launches, as the
@@ -487,6 +500,7 @@ KERNEL_SYMBOLS = {
     "moe_router_bwd": ("moe_router_bwd_kernel",),
     "ssd_state_scan": ("ssd_scan_kernel",),
     "ssd_state_scan_bwd": ("ssd_scan_bwd_kernel",),
+    "adamw_update": ("adamw_grad_sq_kernel", "adamw_finish_kernel", "adamw_apply_kernel"),
 }
 
 
@@ -513,6 +527,23 @@ def in_span(torch, fn, name):
 def reset_launches() -> None:
     for fn in kernels().values():
         fn.launches = 0
+    kernels()["adamw_update"].elements = 0
+
+
+def adamw_per_step(cfg):
+    """``adamw_update``'s launches a training step of ``cfg``'s model: two a
+    (p, g) dtype pair of its leaves and one for the norm's sum
+    (``kernels/adamw.py``).  No step here accumulates microbatches, so each
+    g comes in its p's dtype: a pair a dtype of the leaves."""
+    from repro_torch.models.model import model_module
+    from repro_torch.models.transformer import dtype_of
+    model = model_module(cfg).Model(cfg, device="meta", dtype=dtype_of(cfg))
+    return 2 * len({p.dtype for p in model.parameters()}) + 1
+
+
+def adamw_elements():
+    """Parameters ``adamw_update`` updated since the last ``reset_launches``."""
+    return kernels()["adamw_update"].elements
 
 
 def launches_now():
@@ -1632,6 +1663,10 @@ def train(torch, np, dev):
     n = param_count(cfg)
     print(f"  {n / 1e9:.3f} B params, {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.dtype}; AdamW moments f32")
+    # every leaf bf16: one dtype group, three AdamW launches a step
+    per_step = {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "adamw_update": 3}
+    check(adamw_per_step(cfg) == 3, f"{adamw_per_step(cfg)} AdamW launches a step")
     from repro_torch.kernels import ref
     gradient_gate(torch, np, dev, cfg, S, {"attention": ref.attention_ref},
                   {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers},
@@ -1650,18 +1685,20 @@ def train(torch, np, dev):
     res = run_training(cfg, steps=steps, batch=B, seq=S, lake=lake, run_name="phase8",
                        ckpt_every=every, seed=0, lr=lr, device=dev, on_step=on_step)
     torch.cuda.synchronize()
-    launches = launches_now()
+    launches, elements = launches_now(), adamw_elements()
     peak = torch.cuda.max_memory_allocated()
     print(f"  run_training: {res.steps_done} steps of {B} x {S} tokens in "
           f"{time.perf_counter() - t0:.1f} s (init, checkpoints at {every} and {steps} "
-          f"included); launches {launches}")
+          f"included); launches {launches}; AdamW updated {elements} parameters")
     print(f"  losses: {[round(x, 4) for x in res.losses]}")
     check(res.steps_done == steps and all(np.isfinite(res.losses)), "non-finite loss")
     check(res.losses[-1] < res.losses[0], "the loss did not fall")
     for name in kernels():
-        want = steps * cfg.n_layers if name.startswith("flash_attention") else 0
+        want = steps * per_step.get(name, 0)
         check(launches[name] == want, f"{name}: {launches[name]} launches over {steps} "
                                       f"steps, expected {want}")
+    check(elements == steps * n, f"AdamW updated {elements} parameters over {steps} steps, "
+                                 f"expected {steps * n}")
     step_s = statistics.median(b - a for a, b in zip(times[1:], times[2:]))   # steps 3-10
     flops = model_flops(cfg, ShapeConfig("phase8", "train", S, B))
     print(f"  ms_per_step={1e3 * step_s:.1f} (median of steps 3-{steps}) "
@@ -1720,7 +1757,7 @@ def train(torch, np, dev):
                            n=TRAIN_PROFILE_STEPS)
     del state
     torch.cuda.empty_cache()
-    return {"launches": launches, "served": served}
+    return {"launches": launches, "elements": elements, "served": served}
 
 
 # ---------------------------------------------------------------------------
@@ -1849,6 +1886,7 @@ def executors(torch, np, dev):
         walls, _ = run(plan, range(len(plan.phases)))
         whole = plan.finalize().payload
         launches_whole, trained = launches_now(), len(starts)
+        elements_whole = adamw_elements()
         peak_train = torch.cuda.max_memory_allocated()
         step_times = [1e3 * (b - a) for i in range(0, steps, every)   # within a phase
                       for a, b in zip(starts[i:i + every], starts[i + 1:i + every])]
@@ -1875,6 +1913,7 @@ def executors(torch, np, dev):
                                     profiled=len(again.phases) - 1)
         resumed = again.finalize().payload
         launches_resumed, trained_resumed = launches_now(), len(starts)
+        elements_resumed = adamw_elements()
         del again, lake
         gc.collect()
     print(f"  train, killed after phase 0 ({walls_dead[0]:.1f} s) and run again from "
@@ -1884,12 +1923,17 @@ def executors(torch, np, dev):
           f"resumed from {resumed.get('resumed_from')}, expected {every}")
     check(resumed["final_loss"] == whole["final_loss"],
           f"final loss {resumed['final_loss']!r} resumed, {whole['final_loss']!r} whole")
-    for launched, n in ((launches_whole, trained), (launches_resumed, trained_resumed)):
+    per_step = {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "adamw_update": adamw_per_step(cfg)}
+    for launched, elements, n in ((launches_whole, elements_whole, trained),
+                                  (launches_resumed, elements_resumed, trained_resumed)):
         check(n == steps, f"{n} steps trained, expected {steps}")
         for name in kernels():
-            want = n * cfg.n_layers if name.startswith("flash_attention") else 0
+            want = n * per_step.get(name, 0)
             check(launched[name] == want, f"{name}: {launched[name]} launches over {n} "
                                           f"trained steps, expected {want}")
+        check(elements == n * param_count(cfg), f"AdamW updated {elements} parameters over "
+                                                f"{n} trained steps")
     train_us = {k: v / (steps - (steps // every - 1) * every)    # the last phase's steps
                 for k, v in train_us.items()}
 
@@ -1928,7 +1972,7 @@ def executors(torch, np, dev):
           f"steps x {cfg.n_layers} layers")
     check(all(launches_serve[k] == 0 for k in ("flash_attention_bwd", "moe_gating",
                                                 "moe_router", "moe_router_bwd",
-                                                "ssd_state_scan")),
+                                                "ssd_state_scan", "adamw_update")),
           "a kernel off the dense serving path launched")
     blast = endpoints[2].executor(Job(JobSpec("blast", {"srr": "SRR2931415", "db": "human"})),
                                   None)
@@ -1965,10 +2009,13 @@ def executors(torch, np, dev):
             "launches_train": launches_whole["flash_attention_bwd"]
             + launches_resumed["flash_attention_bwd"],
             "us_per_training_step": round(train_us["flash_attention_bwd"], 2)},
+        "adamw_update": {
+            "launches_train": launches_whole["adamw_update"] + launches_resumed["adamw_update"],
+            "us_per_training_step": round(train_us["adamw_update"], 2)},
         "flash_decode": {"launches_serve": launches_serve["flash_decode"],
                          "us_per_decode_step": round(per_decode, 2)},
     }
-    print(f"  attention kernels in phase 9: {out}")
+    print(f"  attention kernels and AdamW in phase 9: {out}")
     torch.cuda.empty_cache()
     return out
 
@@ -2030,6 +2077,8 @@ def overlay_on_card(torch, np, dev):
 
     out = {}
     demo = get_config(OVERLAY_ARCH)
+    per_step = {"flash_attention": demo.n_layers, "flash_attention_bwd": demo.n_layers,
+                "adamw_update": adamw_per_step(demo)}
     with mock.patch.object(trainer, "make_train_step", counted_train_step):
         # (a) the quickstart: the paper's whole story
         reset_launches()
@@ -2050,11 +2099,12 @@ def overlay_on_card(torch, np, dev):
         check(q["new_jobs"] == 0 and q["again"].result == res,
               f"the repeat spawned {q['new_jobs']} jobs")
         for name in kernels():
-            want = steps * demo.n_layers if name.startswith("flash_attention") else 0
+            want = steps * per_step.get(name, 0)
             check(launched[name] == want, f"quickstart: {name} launched {launched[name]} "
                                           f"times over {steps} steps, expected {want}")
         _print_job("quickstart", q["first"], launched, us,
-                   {"flash_attention": steps, "flash_attention_bwd": steps})
+                   {"flash_attention": steps, "flash_attention_bwd": steps,
+                    "adamw_update": steps})
         _print_job("quickstart repeat", q["repeat"], {})
         out["quickstart"] = {k: launched[k] for k in ("flash_attention", "flash_attention_bwd")}
         del q
@@ -2080,11 +2130,12 @@ def overlay_on_card(torch, np, dev):
               f"final loss {res['final_loss']!r} after the failover, {whole['final_loss']!r} "
               f"unbroken")
         for name in kernels():
-            want = steps * demo.n_layers if name.startswith("flash_attention") else 0
+            want = steps * per_step.get(name, 0)
             check(launched[name] == want, f"failover: {name} launched {launched[name]} "
                                           f"times over {steps} steps, expected {want}")
         _print_job("failover", f["failover"], launched, us,
-                   {"flash_attention": steps, "flash_attention_bwd": steps})
+                   {"flash_attention": steps, "flash_attention_bwd": steps,
+                    "adamw_update": steps})
         out["failover"] = {k: launched[k] for k in ("flash_attention", "flash_attention_bwd")}
         del f
         gc.collect()
@@ -2467,7 +2518,8 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
     steps, checkpoint at, peak lr, remat) with only the checkpoint at
     ``every`` written (tens of GB of host arrays each) and the live state it
     is taken from fingerprinted.  Gates: each kernel's launches over the run
-    (``per_step`` gives a step's under remat "none"), finite losses that
+    (``per_step`` gives a step's under remat "none", ``adamw_per_step``
+    AdamW's) and every parameter updated once a step, finite losses that
     fall, the checkpoint restored bit-equal to that live state, and the
     steps after it, on the run's own batches, giving the run's losses and
     final state bit for bit.  Returns the run's launches, seconds per step
@@ -2479,6 +2531,7 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
     from repro_torch.ckpt import restore_checkpoint
     from repro_torch.data import SyntheticLM
     from repro_torch.lake import MemoryLake
+    from repro_torch.models import param_count
     from repro_torch.optim import AdamW, warmup_cosine
     from repro_torch.train.step import train_state_shape
 
@@ -2506,7 +2559,7 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
                                    remat=remat, device=dev, on_step=lambda s, l: times.append(
                                        time.perf_counter()))
     torch.cuda.synchronize()
-    launches = launches_now()
+    launches, elements = launches_now(), adamw_elements()
     peak = torch.cuda.max_memory_allocated()
     print(f"  run_training: {res.steps_done} steps of {B} x {S} tokens, remat {remat!r}, in "
           f"{time.perf_counter() - t0:.1f} s (init and the step-{every} checkpoint included); "
@@ -2514,11 +2567,14 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
     print(f"  losses: {[round(x, 4) for x in res.losses]}")
     check(res.steps_done == steps and all(np.isfinite(res.losses)), "non-finite loss")
     check(res.losses[-1] < res.losses[0], "the loss did not fall")
-    want = launches_per_step(per_step, remat)
+    want = {**launches_per_step(per_step, remat), "adamw_update": adamw_per_step(cfg)}
     for name in kernels():
         check(launches[name] == steps * want.get(name, 0),
               f"{name}: {launches[name]} launches over {steps} steps, expected "
               f"{steps * want.get(name, 0)}")
+    check(elements == steps * param_count(cfg), f"AdamW updated {elements} parameters over "
+                                                f"{steps} steps, expected "
+                                                f"{steps * param_count(cfg)}")
     step_s = statistics.median(b - a for a, b in zip(times[1:], times[2:]))   # step 3 on
     final = state_fingerprints(torch, res.state)
     res.state = None
@@ -2556,13 +2612,15 @@ def train_and_replay(torch, np, dev, cfg, run_name, run, per_step):
 
 def check_remat_launches(torch, cfg, optimizer, state, batch, per_step, policies):
     """One step under each remat policy in ``policies``; its launches
-    against ``launches_per_step``.  Returns the state."""
+    against ``launches_per_step`` and ``adamw_per_step``.  Returns the
+    state."""
     from repro_torch.train.step import make_train_step
     for remat in policies:
         reset_launches()
         state, _ = make_train_step(cfg, optimizer, remat=remat)(state, batch)
         torch.cuda.synchronize()
-        got, want = launches_now(), launches_per_step(per_step, remat)
+        got = launches_now()
+        want = {**launches_per_step(per_step, remat), "adamw_update": adamw_per_step(cfg)}
         print(f"  remat {remat!r}: launches per step {got}")
         check(all(got[name] == want.get(name, 0) for name in got),
               f"remat {remat}: {got}, expected {want}")
@@ -3259,7 +3317,8 @@ def lake_across_processes(torch, np, dev):
               "process 2's losses differ from the in-process resume's")
         n = steps - every
         want = {"flash_attention": n * CONFIG_100M.n_layers,
-                "flash_attention_bwd": n * CONFIG_100M.n_layers}
+                "flash_attention_bwd": n * CONFIG_100M.n_layers,
+                "adamw_update": n * adamw_per_step(CONFIG_100M)}
         check(all(launches[k] == want.get(k, 0) for k in launches),
               f"launches {launches}, expected {want}")
         res.state = None
@@ -3964,9 +4023,123 @@ def kernel_table(torch, dev, dense, prompt_lengths, hybrid, moe):
                   "training layer (phase 14)", dtype_name="float32", phase14=True)
     bwd_row(f"{lidc.arch_id} (phase 14)", B, S, lidc.n_heads, lidc.n_kv_heads, lidc.hd,
             dtype_name="float32", phase14=True)
+    rows.append(adamw_row(torch, dev, gen, flush, read_flush, floor[0]))
     for r in rows:
         print_row(r)
     return rows
+
+
+# the fused AdamW against the plain loop (tests/test_torch_kernels_cuda.py
+# says why): bit-equal to the loop run at the kernel's own clip scale; the
+# norm, summed in another order, within 1e-6 of the loop's
+ADAMW_GNORM_REL = 1e-6
+
+
+def f32_ulps(torch, a, b) -> int:
+    """|a - b| in ulps, for two 0-dim f32 tensors."""
+    def ordered(t):
+        i = int(t.view(torch.int32))
+        return -(i & 0x7FFFFFFF) if i < 0 else i
+    return abs(ordered(a) - ordered(b))
+
+
+def adamw_row(torch, dev, gen, flush, read_flush, floor_ms):
+    """The fused AdamW (``kernels/adamw.py``) at phase 8's whole leaf set:
+    qwen3-1.7b's 310 leaves, p and g bf16, m and v f32.  One step against
+    the plain loop from the same state, then the step's time beside its
+    byte bound (2 bytes an element for the norm's read of g, 22 for the
+    update), the plain loop's and, as a yardstick only, torch's fused AdamW
+    (``torch.optim.AdamW(fused=True)``, moments in the parameters' bf16)
+    and its foreach norm clip, each with ~10 ms of the stream held while
+    the host enqueues it (the update's host side, ~2-4 ms, outlasts the
+    table's usual ~1 ms); the device time of each of the three launches
+    from a profile.  Its launches, parameters and device us a training step
+    are phase 8's, filled in there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.adamw import adamw_update
+    from repro_torch.models.model import model_module
+    from repro_torch.models.transformer import dtype_of
+    from repro_torch.optim import AdamW, warmup_cosine
+    cfg = get_config(TRAIN_RUN[0])
+    model = model_module(cfg).Model(cfg, device="meta", dtype=dtype_of(cfg)).to_empty(
+        device=dev)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(generator=gen)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in model.parameters()]
+    opt = AdamW(lr=warmup_cosine(TRAIN_RUN[5], 2, TRAIN_RUN[3]))
+    state = opt.init(model)
+    plain = copy.deepcopy(model)
+    plain_state = opt.init(plain)
+    adamw_update.launches = adamw_update.elements = 0
+    state, got = opt.update(grads, state, model)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    check((adamw_update.launches, adamw_update.elements) == (3, n),
+          f"adamw_update counted {adamw_update.launches} launches and "
+          f"{adamw_update.elements} elements for one step of {n}")
+    with torch.no_grad():         # the plain loop's norm, as plain_update sums it
+        want = torch.sqrt(torch.stack([torch.sum(torch.square(g.float())) for g in grads]).sum())
+    gn, wn = float(got["grad_norm"]), float(want)
+
+    def clip_scale(norm):          # in f32, as both sides compute it
+        t = torch.tensor(norm, dtype=torch.float32)
+        return torch.clamp(torch.reciprocal(t + 1e-9) * opt.grad_clip, max=1.0)
+    scale = clip_scale(gn).to(dev)
+    plain_state, _ = opt._replace(grad_clip=0.0).plain_update(
+        [g.float() * scale for g in grads], plain_state, plain)
+    same = all(torch.equal(p, q) and torch.equal(state.m[name], plain_state.m[name])
+               and torch.equal(state.v[name], plain_state.v[name])
+               for (name, p), q in zip(model.named_parameters(), plain.parameters()))
+    print(f"  adamw_update against the plain loop, one step of {n} parameters: grad norm "
+          f"{gn!r} / {wn!r} (clip scales {f32_ulps(torch, scale.cpu(), clip_scale(wn))} ulps "
+          f"apart); p, m and v bit-equal to the loop at the kernel's scale: {same}")
+    check(abs(gn - wn) <= ADAMW_GNORM_REL * wn and same,
+          "adamw_update disagrees with the plain loop")
+    del plain, plain_state
+    torch.cuda.empty_cache()
+
+    hold = 10 * SLEEP_CYCLES
+
+    def kernel():
+        opt.update(grads, state, model)
+
+    def plain_step():
+        opt.plain_update(grads, state, model)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kernel()
+        torch.cuda.synchronize()
+    passes = {}
+    for name, start, end in device_events(prof):
+        key = next((k for k in KERNEL_SYMBOLS["adamw_update"] if k in name), None)
+        if key:
+            passes[key] = passes.get(key, 0.0) + (end - start) / 5e3
+    row = {
+        "name": "adamw_update", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: the reference's AdamW is plain JAX",
+        "shape": f"{TRAIN_RUN[0]} training step's AdamW: {len(grads)} leaves, {n} parameters, "
+                 f"p and g bf16, m and v f32", "launches": None,
+        "max_abs_err": 0.0, "ms": time_ms(torch, kernel, flush, sleep=hold),
+        "ms_read_flush": time_ms(torch, kernel, read_flush, sleep=hold),
+        "plain_ms": time_ms(torch, plain_step, flush, reps=5, warmup=1, sleep=hold),
+        "bound_ms": 24.0 * n / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "served_us_per_step": None, "launch_floor_ms": floor_ms, "per": "training step",
+        "pass_ms": passes}
+    for p, g in zip(model.parameters(), grads):
+        p.grad = g
+    lib = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(opt.b1, opt.b2), eps=opt.eps,
+                            weight_decay=opt.weight_decay, fused=True)
+    row["library_ms"] = time_ms(torch, lib.step, flush, sleep=hold)
+    row["library_clip_ms"] = time_ms(torch, lambda: torch.nn.utils.clip_grad_norm_(
+        model.parameters(), opt.grad_clip, foreach=True), flush, sleep=hold)
+    print(f"  adamw_update passes, ms: {passes}; torch's fused AdamW (bf16 moments) "
+          f"{row['library_ms']:.4f} ms, its foreach norm clip {row['library_clip_ms']:.4f} ms")
+    return row
 
 
 def print_row(r):
@@ -4048,9 +4221,12 @@ def main() -> int:
         with Phase(f"phase 8: train {TRAIN_RUN[0]} through run_training"):
             trained = train(torch, np, dev)
             for r in rows:
-                if r["name"] == "flash_attention_bwd" and r["shape"].startswith(TRAIN_RUN[0]):
-                    r["launches"] = trained["launches"]["flash_attention_bwd"]
-                    r["served_us_per_step"] = trained["served"]["flash_attention_bwd"]
+                if r["name"] in ("flash_attention_bwd", "adamw_update") and r[
+                        "shape"].startswith(TRAIN_RUN[0]):
+                    r["launches"] = trained["launches"][r["name"]]
+                    r["served_us_per_step"] = trained["served"][r["name"]]
+                    if r["name"] == "adamw_update":
+                        r["elements"] = trained["elements"]
                     print_row(r)
 
         with Phase("phase 9: the executors on the card"):

@@ -24,7 +24,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
             "decode_attention.cu", "moe_gating.cu", "moe_router_bwd.cu", "ssd_scan.cu",
-            "ssd_scan_bwd.cu")
+            "ssd_scan_bwd.cu", "adamw.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -107,5 +107,12 @@ def library() -> ctypes.CDLL:
         lib.ssd_scan_fwd.restype = i32
         lib.ssd_scan_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         lib.ssd_scan_bwd.restype = i32
+        f32 = ctypes.c_float
+        lib.adamw_grad_sq.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.adamw_grad_sq.restype = i32
+        lib.adamw_finish.argtypes = [ptr] * 3 + [i32] * 2 + [f32] * 3 + [ptr]
+        lib.adamw_finish.restype = i32
+        lib.adamw_apply.argtypes = [ptr] * 5 + [i32] * 4 + [f32] * 6 + [ptr]
+        lib.adamw_apply.restype = i32
         _lib = lib
     return _lib

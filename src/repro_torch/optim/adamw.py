@@ -12,14 +12,21 @@ decays; the final norm's does not.  Unlike the reference, which
 returns new arrays, ``update`` writes the parameters and the moments in
 place (it saves a copy of the whole train state per step) and returns the
 new step.
+
+``update`` dispatches as ``kernels/ops.py`` does: plain CUDA tensors go to
+the fused kernel (``kernels/adamw.py``, three launches a step for all the
+leaves), which launches or raises; CPU tensors and DTensors (whose norm
+needs the mesh's reduction) take ``plain_update``, the leaf-by-leaf loop.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from ..kernels import adamw as fused
 
 __all__ = ["AdamW", "AdamWState", "reference_dims"]
 
@@ -58,12 +65,34 @@ class AdamW(NamedTuple):
                           m={n: zeros(p) for n, p in named},
                           v={n: zeros(p) for n, p in named})
 
+    def decays(self, named: Sequence[Tuple[str, torch.Tensor]]) -> List[bool]:
+        """Whether each named parameter takes the weight decay."""
+        return [self.weight_decay > 0 and reference_dims(n, p) >= 2 for n, p in named]
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: AdamWState, params: nn.Module
                ) -> Tuple[AdamWState, Dict[str, torch.Tensor]]:
         """One step with ``grads`` in the order of ``params.named_parameters()``.
         Returns the new state (the moments updated in place) and the metrics
         {"grad_norm", "lr"}, 0-dim tensors."""
+        named = list(params.named_parameters())
+        leaves = [p for _, p in named]
+        if not fused.takes(leaves):
+            return self.plain_update(grads, state, params)
+        step = state.step + 1
+        lr = self.lr(step)
+        gnorm = fused.adamw_update(leaves, list(grads), [state.m[n] for n, _ in named],
+                                   [state.v[n] for n, _ in named], self.decays(named), step,
+                                   lr, b1=self.b1, b2=self.b2, eps=self.eps,
+                                   weight_decay=self.weight_decay, grad_clip=self.grad_clip)
+        return AdamWState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}
+
+    @torch.no_grad()
+    def plain_update(self, grads: Sequence[torch.Tensor], state: AdamWState, params: nn.Module
+                     ) -> Tuple[AdamWState, Dict[str, torch.Tensor]]:
+        """``update`` leaf by leaf in eager ops: the plain version of the
+        fused kernel, and the path of CPU tensors and DTensors."""
+        named = list(params.named_parameters())
         step = state.step + 1
         gsq = torch.stack([torch.sum(torch.square(g.float())) for g in grads]).sum()
         gnorm = torch.sqrt(gsq)
@@ -73,12 +102,12 @@ class AdamW(NamedTuple):
         c1 = 1.0 - torch.pow(self.b1, stepf)
         c2 = 1.0 - torch.pow(self.b2, stepf)
         lr = self.lr(step)
-        for (name, p), g in zip(params.named_parameters(), grads):
+        for (name, p), g, decays in zip(named, grads, self.decays(named)):
             g = g.float() * scale
             m = self.b1 * state.m[name] + (1 - self.b1) * g
             v = self.b2 * state.v[name] + (1 - self.b2) * g * g
             delta = (m / c1) / (torch.sqrt(v / c2) + self.eps)
-            if self.weight_decay > 0 and reference_dims(name, p) >= 2:
+            if decays:
                 delta = delta + self.weight_decay * p.float()
             p.copy_(p.float() - lr * delta)                # rounded once to p's dtype
             state.m[name].copy_(m)

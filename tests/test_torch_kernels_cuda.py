@@ -1048,3 +1048,327 @@ def test_two_rank_gpipe_matches_the_sequential_loss(cuda_device, tmp_path):
     for got in spawn(_pp_rank, 2, tmp_path):
         assert got["loss"] <= 1e-5 and max(got["grads"]) <= 1e-4, got
         assert got["launches"] == (2, 2), got
+
+
+# ---------------------------------------------------------------------------
+# AdamW: the fused kernel against the plain loop
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b's tied embedding (311,164,928 elements) beside its 2,048-element
+# norms, sizes that are no multiple of the 8-element vector, and leaves
+# whose p, m and v (ADAMW_MISALIGNED) or g alone (ADAMW_G_MISALIGNED) start
+# off 16 bytes, so that both load paths and every ragged end run
+ADAMW_LEAVES = [("embed.table", (151936, 2048)), ("blocks.0.norm1.w", (2048,)),
+                ("blocks.0.attn.q_norm", (7,)), ("blocks.0.mlp.w_up", (13, 77)),
+                ("blocks.1.attn.wo", (4097,)), ("blocks.1.mlp.w_down", (33, 65)),
+                ("blocks.1.b", (1,)), ("final_norm.w", (2048,))]
+ADAMW_MISALIGNED = "blocks.1.attn.wo"
+ADAMW_G_MISALIGNED = "blocks.1.mlp.w_down"
+# The update is the plain loop's arithmetic op for op: against the plain
+# loop run at the kernel's own clip scale (no clip, each gradient first
+# taken times that scale, as the loop's first op does), p, m and v are
+# bit-equal.  Against the plain loop with its clip, only the gradients'
+# norm differs, summed in another order (chunk partials and a fixed tree,
+# against torch's per-leaf sums): within ADAMW_GNORM_REL, so the two clip
+# scales may be d ulps apart.  Where d = 0 everything is bit-equal; else
+# each element of m (b1 m + (1 - b1) g s) lies within ADAMW_MV_ULPS + 2 d
+# f32 ulps of the larger of its two terms, and of v (b2 v + (1 - b2) g^2
+# s^2) within ADAMW_MV_ULPS + 4 d (an ulp's relative size varies 2x within
+# a binade, so d ulps of s are up to 2 d of a product with it; the terms
+# may cancel, so the sum's own ulp can be far smaller than its error), and
+# at least ADAMW_P_EQUAL of p's elements are equal (a last-bit change of m
+# or v moves p's rounding only near a tie; where p and lr delta cancel, p's
+# own ulp bounds nothing, so no element-wise bound is set on p there).
+ADAMW_MV_ULPS, ADAMW_P_EQUAL = 2, 0.999
+ADAMW_GNORM_REL = 1e-6          # the norm itself, summed in another order
+
+
+def _ulps(a, b):
+    """|a - b| in ulps, for f32 tensors."""
+    def ordered(t):        # the bits as integers in the order of the values
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _adamw_leaves(pdtype, dev, seed):
+    """A module of ADAMW_LEAVES in ``pdtype``, from ``seed``."""
+    from torch import nn
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    root = nn.Module()
+    for name, shape in ADAMW_LEAVES:
+        *path, leaf = name.split(".")
+        mod = root
+        for part in path:
+            if not hasattr(mod, part):
+                mod.add_module(part, nn.Module())
+            mod = getattr(mod, part)
+        n = int(np.prod(shape))
+        if name == ADAMW_MISALIGNED:
+            t = torch.randn(n + 1, generator=gen, device=dev).to(pdtype)[1:].view(shape)
+        else:
+            t = torch.randn(shape, generator=gen, device=dev).to(pdtype)
+        mod.register_parameter(leaf, nn.Parameter(t, requires_grad=False))
+    return root
+
+
+def _adamw_state(opt, params):
+    state = opt.init(params)
+    for name, p in params.named_parameters():
+        if name == ADAMW_MISALIGNED:
+            for moments in (state.m, state.v):
+                moments[name] = torch.zeros(p.numel() + 1, device=p.device)[1:].view(p.shape)
+    return state
+
+
+def _adamw_grads(params, gdtype, step):
+    gen = torch.Generator(device=params.embed.table.device).manual_seed(100 + step)
+    out = []
+    for name, p in params.named_parameters():
+        if name == ADAMW_G_MISALIGNED:
+            g = torch.randn(p.numel() + 1, generator=gen, device=p.device)[1:].view(p.shape)
+        else:
+            g = torch.randn(p.shape, generator=gen, device=p.device)
+        out.append(g.to(gdtype) if gdtype != torch.float32 else g)
+    return out
+
+
+def _adamw_kernel_run(opt, dev):
+    """Three steps of AdamW.update on ADAMW_LEAVES in bf16: the leaves,
+    the state and the norms."""
+    params = _adamw_leaves(torch.bfloat16, dev, seed=7)
+    state = _adamw_state(opt, params)
+    norms = []
+    for k in range(1, 4):
+        state, metrics = opt.update(_adamw_grads(params, torch.bfloat16, k), state, params)
+        norms.append(float(metrics["grad_norm"]))
+    return params, state, norms
+
+
+def _spacing(x):
+    """The f32 ulp at |x|, for normal numbers."""
+    _, e = torch.frexp(x.abs().float())
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 24)
+
+
+def _clip_scale(gnorm, clip):
+    """The clip's scale from a norm, in f32, as both sides compute it."""
+    t = torch.tensor(gnorm, dtype=torch.float32)
+    return torch.clamp(torch.reciprocal(t + 1e-9) * clip, max=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdtype,gdtype", [(torch.bfloat16, torch.bfloat16),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.float32)])
+@pytest.mark.parametrize("weight_decay", [0.1, 0.0])
+@pytest.mark.parametrize("grad_clip", [1.0, 1e6])      # engaged (norm ~1.8e4), and not
+def test_adamw_kernel_matches_the_plain_loop(cuda_device, pdtype, gdtype, weight_decay,
+                                             grad_clip):
+    """Steps 1-3 of AdamW.update (the kernel) against plain_update, each
+    from the same state (the plain sides take the kernel side's p, m and v
+    first), leaf by leaf, as the bounds above say; three launches a step,
+    one dtype group."""
+    from repro_torch.kernels.adamw import adamw_update
+    from repro_torch.optim import AdamW, warmup_cosine
+    opt = AdamW(lr=warmup_cosine(3e-3, 2, 10), weight_decay=weight_decay, grad_clip=grad_clip)
+    at_scale = opt._replace(grad_clip=0.0)
+    # the kernel, the plain loop, the plain loop at the kernel's scale
+    sides = [_adamw_leaves(pdtype, cuda_device, seed=7) for _ in range(3)]
+    states = [_adamw_state(opt, side) for side in sides]
+    named = list(sides[0].named_parameters())
+    assert dict(named)[ADAMW_MISALIGNED].data_ptr() % 16
+    adamw_update.launches = adamw_update.elements = 0
+    for k in range(1, 4):
+        with torch.no_grad():
+            for side, state in zip(sides[1:], states[1:]):
+                for (name, p), q in zip(named, side.parameters()):
+                    q.copy_(p)
+                    state.m[name].copy_(states[0].m[name])
+                    state.v[name].copy_(states[0].v[name])
+        m0 = {name: states[0].m[name].clone() for name, _ in named}
+        v0 = {name: states[0].v[name].clone() for name, _ in named}
+        grads = _adamw_grads(sides[0], gdtype, k)
+        states[0], got = opt.update(grads, states[0], sides[0])
+        states[1], want = opt.plain_update(grads, states[1], sides[1])
+        gn, wn = float(got["grad_norm"]), float(want["grad_norm"])
+        assert abs(gn - wn) <= ADAMW_GNORM_REL * wn, (k, gn, wn)
+        scale, plain_scale = _clip_scale(gn, grad_clip), _clip_scale(wn, grad_clip)
+        states[2], _ = at_scale.plain_update([g.float() * scale.to(g.device) for g in grads],
+                                             states[2], sides[2])
+        d = int(_ulps(scale, plain_scale))
+        for i, (name, p) in enumerate(named):
+            q, r = (list(side.parameters())[i] for side in sides[1:])
+            assert torch.equal(p, r), (k, name)
+            assert torch.equal(states[0].m[name], states[2].m[name]), (k, name)
+            assert torch.equal(states[0].v[name], states[2].v[name]), (k, name)
+            gs = grads[i].float() * plain_scale.to(p.device)
+            for what, terms, ulps in (
+                    ("m", (opt.b1 * m0[name], (1 - opt.b1) * gs), ADAMW_MV_ULPS + 2 * d),
+                    ("v", (opt.b2 * v0[name], (1 - opt.b2) * gs * gs), ADAMW_MV_ULPS + 4 * d)):
+                a, b = getattr(states[0], what)[name], getattr(states[1], what)[name]
+                bound = ulps * _spacing(torch.maximum(*(t.abs() for t in terms))) if d else 0
+                assert bool(((a - b).abs() <= bound).all()), (k, name, what, gn, wn, d)
+            equal = float((p == q).float().mean())
+            assert equal == 1.0 if d == 0 else equal >= ADAMW_P_EQUAL, (k, name, equal, d)
+    numel = sum(p.numel() for _, p in named)
+    assert (adamw_update.launches, adamw_update.elements) == (9, 3 * numel)
+    assert int(states[0].step) == int(states[1].step) == 3
+
+
+# Small and ragged leaves only (no leaf large enough to hide one element's
+# square): 7, 1 and 1,001 elements, 4,097 with p, m and v off 16 bytes,
+# 2,048, and three chunks and 5 elements with g off 16 bytes.  Gradients of
+# whole numbers in [-3, 3], none 0, square and sum exactly in f32 in any
+# order (every sum stays below 2^24), so the norm is sqrt of a whole number,
+# rounded once, whatever the order: a dropped or doubled element moves the
+# sum by 1 to 9 and the norm by far more than its last bit.
+ADAMW_SMALL_LEAVES = [("a", (7,)), ("b", (1,)), ("c", (13, 77)), ("d", (4097,)),
+                      ("e", (2048,)), ("f", (3 * 32768 + 5,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdtype,gdtype", [(torch.bfloat16, torch.bfloat16),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.float32)])
+def test_adamw_kernel_norm_counts_every_element_once(cuda_device, pdtype, gdtype):
+    """The norm of whole-number gradients equals the exact one bit for bit,
+    over all the small leaves and over each leaf alone (the others' gradients
+    zero), so each leaf's chunks cover it exactly once."""
+    from torch import nn
+
+    from repro_torch.kernels.adamw import CHUNK
+    from repro_torch.optim import AdamW, constant
+    assert ADAMW_SMALL_LEAVES[-1][1][0] == 3 * CHUNK + 5
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = nn.Module()
+    for name, shape in ADAMW_SMALL_LEAVES:
+        n = int(np.prod(shape))
+        t = torch.randn(n + (name == "d"), generator=gen, device=dev).to(pdtype)
+        params.register_parameter(name, nn.Parameter(t[int(name == "d"):].view(shape),
+                                                     requires_grad=False))
+    opt = AdamW(lr=constant(1e-3), grad_clip=1e6)
+    state = opt.init(params)
+    for moments in (state.m, state.v):
+        moments["d"] = torch.zeros(4098, device=dev)[1:]
+    assert params.d.data_ptr() % 16 and state.m["d"].data_ptr() % 16
+    grads = []
+    for name, shape in ADAMW_SMALL_LEAVES:
+        n = int(np.prod(shape))
+        g = torch.randint(1, 4, (n + (name == "f"),), generator=gen, device=dev)
+        g = torch.where(torch.rand(g.shape, generator=gen, device=dev) < 0.5, -g, g)
+        grads.append(g.to(gdtype)[int(name == "f"):].view(shape))
+    assert grads[-1].data_ptr() % 16
+
+    def exact_norm(gs):
+        total = sum(int(g.double().square().sum()) for g in gs)
+        assert total < 2 ** 24
+        return torch.sqrt(torch.tensor(float(total), dtype=torch.float32))
+
+    state, got = opt.update(grads, state, params)
+    assert torch.equal(got["grad_norm"].cpu(), exact_norm(grads)), (got, exact_norm(grads))
+    for i, (name, _) in enumerate(ADAMW_SMALL_LEAVES):
+        alone = [g if j == i else torch.zeros_like(g) for j, g in enumerate(grads)]
+        state, got = opt.update(alone, state, params)
+        want = exact_norm([grads[i]])
+        assert torch.equal(got["grad_norm"].cpu(), want), (name, got, want)
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_is_bit_repeatable(cuda_device):
+    from repro_torch.optim import AdamW, warmup_cosine
+    opt = AdamW(lr=warmup_cosine(3e-3, 2, 10))
+    (p1, s1, n1), (p2, s2, n2) = (_adamw_kernel_run(opt, cuda_device) for _ in range(2))
+    assert n1 == n2
+    for (name, a), b in zip(p1.named_parameters(), p2.parameters()):
+        assert torch.equal(a, b) and torch.equal(s1.m[name], s2.m[name]), name
+        assert torch.equal(s1.v[name], s2.v[name]), name
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_counts_a_launch_pair_per_dtype_group(cuda_device):
+    """bf16 leaves with bf16 and f32 gradients and f32 leaves: three dtype
+    groups, 2 x 3 + 1 launches a step, every element counted once; without
+    a clip the scale is 1 on both sides, so p, m and v equal the plain
+    loop's bit for bit."""
+    import copy
+
+    from torch import nn
+
+    from repro_torch.kernels.adamw import adamw_update
+    from repro_torch.optim import AdamW, constant
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    m = nn.Module()
+    dtypes = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+              (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)]
+    for i, (pd, _) in enumerate(dtypes):
+        m.register_parameter(f"w{i}", nn.Parameter(
+            torch.randn(1000 + 37 * i, generator=gen, device=cuda_device).to(pd)))
+    opt = AdamW(lr=constant(1e-3), grad_clip=0.0)
+    state = opt.init(m)
+    plain = copy.deepcopy(m)
+    plain_state = opt.init(plain)
+    adamw_update.launches = adamw_update.elements = 0
+    for _ in range(2):
+        grads = [torch.randn(p.shape, generator=gen, device=cuda_device).to(gd)
+                 for p, (_, gd) in zip(m.parameters(), dtypes)]
+        state, _ = opt.update(grads, state, m)
+        plain_state, _ = opt.plain_update(grads, plain_state, plain)
+    torch.cuda.synchronize()
+    numel = sum(p.numel() for p in m.parameters())
+    assert (adamw_update.launches, adamw_update.elements) == (2 * 7, 2 * numel)
+    for (name, a), b in zip(m.named_parameters(), plain.parameters()):
+        assert torch.equal(a, b), name
+        assert torch.equal(state.m[name], plain_state.m[name]), name
+        assert torch.equal(state.v[name], plain_state.v[name]), name
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.adamw import adamw_update
+    dev = cuda_device
+    p = [torch.zeros(8, device=dev, dtype=torch.float16)]
+    m, v = [torch.zeros(8, device=dev)], [torch.zeros(8, device=dev)]
+    step, lr = torch.ones((), dtype=torch.int32, device=dev), torch.ones((), device=dev)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0)
+    adamw_update.launches = 0
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        adamw_update(p, [p[0].clone()], m, v, [True], step, lr, **kw)
+    q = [torch.zeros(8, device=dev)]
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_update(q, [q[0].clone()], [torch.zeros(16, device=dev)[::2]], v, [True], step,
+                     lr, **kw)
+    with pytest.raises(ValueError, match="0-dim int32"):
+        adamw_update(q, [q[0].clone()], m, v, [True], step.long(), lr, **kw)
+    with pytest.raises(ValueError, match="cpu"):
+        adamw_update(q, [torch.zeros(8)], m, v, [True], step, lr, **kw)
+    assert adamw_update.launches == 0
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_runs_adamw_through_the_kernel(cuda_device):
+    """lidc-demo smoke in bf16 through make_train_step: three AdamW launches and
+    every parameter a step, the norm a finite 0-dim tensor on the card."""
+    import dataclasses
+
+    from repro_torch.configs.base import smoke_of
+    from repro_torch.kernels.adamw import adamw_update
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_state, make_train_step
+    # heads of 64, which the attention kernels take
+    cfg = dataclasses.replace(smoke_of("lidc-demo"), dtype="bfloat16", d_model=128)
+    opt = AdamW(lr=warmup_cosine(3e-3, 2, 10))
+    state = make_train_state(cfg, 0, opt, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen, device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, opt)
+    adamw_update.launches = adamw_update.elements = 0
+    for _ in range(2):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    numel = sum(p.numel() for p in state["params"].parameters())
+    assert (adamw_update.launches, adamw_update.elements) == (6, 2 * numel)
+    assert metrics["grad_norm"].is_cuda and metrics["grad_norm"].shape == ()
+    assert bool(torch.isfinite(metrics["grad_norm"])) and int(state["opt"].step) == 2
