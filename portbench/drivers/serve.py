@@ -131,12 +131,12 @@ def _engine_counters(eng) -> Dict[str, float]:
 
 def run(ctx) -> Dict:
     from repro_torch.serve.engine import ServeEngine
-    s, mix_cfg = ctx.spec, ctx.traffic
-    record: Dict = {"spec": s}
-    with planted(ctx.fault):
-        arch = port.arch_config(ctx.cfg, s, ctx.config_name)
+    fam, s, mix_cfg = ctx.family, ctx.spec, ctx.traffic
+    record: Dict = {"spec": s, "family": ctx.cfg["family"]}
+    with planted(fam, ctx.fault):
+        arch = fam.arch_config(ctx.cfg, s, ctx.config_name)
         ctx.mark("imported")
-        model = port.load_model(arch, s, ctx.seed, ctx.device)
+        model = port.load_model(fam, arch, s, ctx.seed, ctx.device)
         ctx.sync()
         ctx.mark("weights")
         eng = ServeEngine(arch, model, max_batch=int(mix_cfg["slots"]),
@@ -201,7 +201,7 @@ def run(ctx) -> Dict:
     gc.collect()
     ctx.free()
 
-    got = reference.served_gaps(s, ctx.seed, seqs, ctx.device, control=ctx.control)
+    got = reference.served_gaps(fam, s, ctx.seed, seqs, ctx.device, control=ctx.control)
     ctx.mark("reference done")
     record["readings"] = {"served_logit_gap": got["served_logit_gap"]}
     record["checked_tokens"] = got["tokens"]

@@ -22,7 +22,7 @@ from typing import Dict
 from .. import port, reference, trace
 from ..faults import planted, wrap_train_step
 from ..gen import PackedDocs
-from ..weights import draw_group, groups, leaf_names
+from ..weights import draw_group, leaf_names
 
 __all__ = ["run"]
 
@@ -52,8 +52,8 @@ def _readings(prog: Dict, ref: Dict):
 
 def _reference(ctx, feed: PackedDocs, quant=None) -> Dict:
     import torch
-    ref = reference.TrainReference(ctx.spec, ctx.seed, ctx.traffic["optimizer"], ctx.device,
-                                   quant=quant)
+    ref = reference.TrainReference(ctx.family, ctx.spec, ctx.seed, ctx.traffic["optimizer"],
+                                   ctx.device, quant=quant)
     out: Dict = {"loss": []}
     for k in range(1, CHECKED_STEPS + 1):
         b = {n: torch.from_numpy(v).to(ctx.device) for n, v in feed.batch(k).items()}
@@ -73,23 +73,24 @@ def run(ctx) -> Dict:
     from repro_torch.optim.adamw import AdamW
     from repro_torch.optim.schedule import warmup_cosine
     from repro_torch.train.step import make_train_step
-    s, mix = ctx.spec, ctx.traffic
+    fam, s, mix = ctx.family, ctx.spec, ctx.traffic
     o = mix["optimizer"]
-    record: Dict = {"spec": s, "rows": int(mix["rows"]), "seq": int(mix["seq"]),
+    record: Dict = {"spec": s, "family": ctx.cfg["family"], "rows": int(mix["rows"]),
+                    "seq": int(mix["seq"]),
                     "tokens_per_step": int(mix["rows"]) * int(mix["seq"])}
     feed = PackedDocs(mix, s.vocab, int(ctx.cfg["eos_token_id"]), ctx.seed)
-    with planted(ctx.fault):
-        arch = port.arch_config(ctx.cfg, s, ctx.config_name)
+    with planted(fam, ctx.fault):
+        arch = fam.arch_config(ctx.cfg, s, ctx.config_name)
         ctx.mark("imported")
-        model = port.load_model(arch, s, ctx.seed, ctx.device, requires_grad=True)
+        model = port.load_model(fam, arch, s, ctx.seed, ctx.device, requires_grad=True)
         ctx.sync()
         ctx.mark("weights")
         optimizer = AdamW(lr=warmup_cosine(o["lr"], o["warmup"], o["total_steps"], o["floor"]),
                           b1=o["b1"], b2=o["b2"], eps=o["eps"],
                           weight_decay=o["weight_decay"], grad_clip=o["grad_clip"])
         state = {"params": model, "opt": optimizer.init(model)}
-        step_fn = wrap_train_step(ctx.fault, make_train_step(arch, optimizer,
-                                                             remat=mix["remat"]))
+        step_fn = wrap_train_step(fam, ctx.fault, make_train_step(arch, optimizer,
+                                                                  remat=mix["remat"]))
 
         def one(k: int) -> float:
             nonlocal state
@@ -106,9 +107,9 @@ def run(ctx) -> Dict:
         params = dict(model.named_parameters())
         prog["change"] = {}
         with torch.no_grad():
-            for g in groups(s):
-                start = draw_group(s, ctx.seed, g, ctx.device)
-                for n in leaf_names(s, g):
+            for g in fam.groups(s):
+                start = draw_group(fam, s, ctx.seed, g, ctx.device)
+                for n in leaf_names(fam, s, g):
                     prog["change"][n] = float(torch.linalg.vector_norm(
                         params[n].float() - start[n].float()))
             del start

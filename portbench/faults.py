@@ -2,29 +2,31 @@
 ``correct`` fails them.  Used by ``calibrate.py`` on the card and by the
 tests on the CPU; a benchmark run never plants one.
 
-- ``state_unchanged``: serving writes no new K/V into the cache; training
-  returns the optimizer state and parameters unchanged.
+- ``state_unchanged``: serving writes no new state into the cache (the
+  family's part); training returns the optimizer state and parameters
+  unchanged.
 - ``half_batch``: a decode step computes only the first half of the slots
-  (the rest get token 0); a training step takes the mean loss over the
-  first half of the rows.
+  (the rest get token 0; the family's part); a training step takes the
+  mean loss over the first half of the rows.
 - ``answer_altered``: every request's third served token is replaced
-  where the engine produces it; one leaf's update (layer 0's ``attn.wq``)
-  is applied twice.
+  where the engine produces it; one leaf's update (the family's
+  ``MOVED_TWICE``) is applied twice.
 """
 
 from __future__ import annotations
 
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Iterator, Optional
 
-__all__ = ["FAULTS", "planted", "wrap_train_step"]
+__all__ = ["FAULTS", "patched", "planted", "wrap_train_step"]
 
 FAULTS = ("state_unchanged", "half_batch", "answer_altered")
 ALTERED_TOKEN = 3         # the served token of every request that is replaced
 
 
 @contextmanager
-def _patched(obj, attr: str, value) -> Iterator[None]:
+def patched(obj, attr: str, value) -> Iterator[None]:
+    """``obj.attr`` set to ``value`` for the body's duration."""
     old = getattr(obj, attr)
     setattr(obj, attr, value)
     try:
@@ -34,38 +36,30 @@ def _patched(obj, attr: str, value) -> Iterator[None]:
 
 
 @contextmanager
-def planted(fault: Optional[str]) -> Iterator[None]:
-    """Plant a serving-side fault in the port for the body's duration (the
-    training faults are applied by ``wrap_train_step``)."""
+def planted(family, fault: Optional[str]) -> Iterator[None]:
+    """Plant a serving-side fault in the port for the body's duration: the
+    family's part (``family.planted``) and the part every family shares
+    (the training faults are applied by ``wrap_train_step``)."""
     if fault is None:
         yield
         return
     if fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}; known: {FAULTS}")
+    with family.planted(fault), _shared(fault):
+        yield
+
+
+def _shared(fault: str):
+    """AdamW's update returning its state unchanged, or the engine's served
+    token altered; nothing for ``half_batch``."""
     import torch
-    from repro_torch.models import layers, transformer
     from repro_torch.optim import adamw
     from repro_torch.serve import engine
     if fault == "state_unchanged":
         def update(self, grads, state, params):
             return state, {"grad_norm": torch.zeros(()), "lr": torch.zeros(())}
-        with _patched(layers, "_write_cache", lambda cache, new, index: None), \
-                _patched(adamw.AdamW, "update", update):
-            yield
-    elif fault == "half_batch":
-        real = transformer.decode_step
-
-        def decode_step(cfg, params, cache, tokens, **kw):
-            h = tokens.shape[0] // 2
-            part = {"k": cache["k"][:, :h], "v": cache["v"][:, :h], "index": cache["index"][:h]}
-            logits, _ = real(cfg, params, part, tokens[:h], **kw)
-            full = torch.zeros((tokens.shape[0],) + logits.shape[1:], dtype=logits.dtype,
-                               device=logits.device)
-            full[:h] = logits
-            return full, {"k": cache["k"], "v": cache["v"], "index": cache["index"] + 1}
-        with _patched(transformer, "decode_step", decode_step):
-            yield
-    else:
+        return patched(adamw.AdamW, "update", update)
+    if fault == "answer_altered":
         real_step = engine.ServeEngine.step
 
         def step(self):
@@ -78,11 +72,11 @@ def planted(fault: Optional[str]) -> Iterator[None]:
                 if len(req.out) == ALTERED_TOKEN:
                     req.out[-1] = (req.out[-1] + 1) % self.cfg.vocab
             return done
-        with _patched(engine.ServeEngine, "step", step):
-            yield
+        return patched(engine.ServeEngine, "step", step)
+    return nullcontext()
 
 
-def wrap_train_step(fault: Optional[str], step_fn: Callable) -> Callable:
+def wrap_train_step(family, fault: Optional[str], step_fn: Callable) -> Callable:
     """The training step with a training fault planted around it."""
     if fault == "half_batch":
         return lambda state, batch: step_fn(
@@ -90,7 +84,7 @@ def wrap_train_step(fault: Optional[str], step_fn: Callable) -> Callable:
     if fault == "answer_altered":
         def altered(state, batch):
             import torch
-            leaf = dict(state["params"].named_parameters())["blocks.0.attn.wq"]
+            leaf = dict(state["params"].named_parameters())[family.MOVED_TWICE]
             before = leaf.detach().clone()
             out = step_fn(state, batch)
             with torch.no_grad():

@@ -1,9 +1,10 @@
-"""The benchmark's run of one cell: find its configuration, traffic mix,
-driver, metric readers and limits by name, run the driver, read the
+"""The benchmark's run of one cell: find its configuration, family, traffic
+mix, driver, metric readers and limits by name, run the driver, read the
 metrics, decide ``correct``, and build the result line.
 
-Everything that belongs to one configuration, one mix or one metric is a
-file of its own: ``configs/<config>.json``, ``traffic/<mix>.json`` (whose
+Everything that belongs to one configuration, one family, one mix or one
+metric is a file of its own: ``configs/<config>.json`` (whose ``family``
+names ``families/<family>.py``), ``traffic/<mix>.json`` (whose
 ``driver`` names ``drivers/<driver>.py``), ``metrics/<metric>.py`` (a
 ``read(record)`` that returns a number or None; a metric split by the
 end-to-end metric it moves, ``<metric>.<part>``, falls back to
@@ -21,12 +22,14 @@ import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
-from .yardstick import Spec, spec_of
+from . import families
 
 __all__ = ["HERE", "ROOT", "FORBIDDEN", "Context", "load_benchmark", "cell_of",
-           "metrics_of", "reader_path", "reader", "run_cell", "forbidden_modules", "result_line"]
+           "metrics_of", "reader_path", "reader", "run_cell", "limits_of", "read_limits",
+           "forbidden_modules", "result_line"]
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -94,11 +97,13 @@ class Context:
     t0: float
     control: bool = False
     fault: Optional[str] = None
-    spec: Spec = field(init=False)
+    family: ModuleType = field(init=False)
+    spec: object = field(init=False)
     marks: Dict[str, float] = field(default_factory=dict)
 
     def __post_init__(self):
-        self.spec = spec_of(self.cfg)
+        self.family = families.of(self.cfg)
+        self.spec = self.family.spec_of(self.cfg)
 
     def mark(self, name: str) -> None:
         """Note the seconds since the run's start at a step of set-up or check."""
@@ -143,11 +148,15 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool, device, t0: flo
 
 
 def limits_of(cell: Dict) -> Dict[str, float]:
-    """``limits/<cell>.json``: the limit of each reading, and None for a
-    reading the file names as not compared."""
+    """``limits/<cell>.json``, as ``read_limits`` reads it (none where the
+    file is missing)."""
     path = HERE / "limits" / f"{cell['name']}.json"
-    if not path.exists():
-        return {}
+    return read_limits(path) if path.exists() else {}
+
+
+def read_limits(path: Path) -> Dict[str, float]:
+    """A limits file: the limit of each reading, and None for a reading the
+    file names as not compared."""
     data = load_json(path)
     return {**data["limits"], **{n: None for n in data.get("not_compared", [])}}
 

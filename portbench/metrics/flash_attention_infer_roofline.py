@@ -1,8 +1,10 @@
 """flash_attention_infer_roofline: the roofline bound of the traced
 prefills' causal attention (4·heads·head_dim operations a query-key pair;
 q, k, v read and o written once) over the device time of the kernels
-launched under ``repro_torch::flash_attention_infer``, in %."""
+launched under ``repro_torch::flash_attention_infer``, in %.  The layers
+that run attention, and their heads, are the record's family's."""
 
+from portbench import families
 from portbench import yardstick as y
 
 OP = "repro_torch::flash_attention_infer"
@@ -13,8 +15,9 @@ def read(record):
     if not t or not t["op_device_s"].get(OP):
         return None
     s = record["spec"]
-    bound = sum(s.layers * max(y.attention_flops(s, n) / y.PEAK_FLOPS[s.dtype],
-                               y.attention_bytes(s, n) / y.PEAK_BYTES)
+    layers = families.named(record["family"]).attention_layers(s)
+    bound = sum(layers * max(y.attention_flops(s, n) / y.PEAK_FLOPS[s.dtype],
+                             y.attention_bytes(s, n) / y.PEAK_BYTES)
                 for i in record["iterations"] if i["phase"] == "trace_ops"
                 for n in i["prefills"])
     dev = t["op_device_s"][OP]

@@ -2,8 +2,10 @@
 steps' causal attention, forward and backward (2 products forward, 4
 backward: dV, dP, dQ, dK; the recomputed scores are not counted) over the
 device time of the kernels launched under ``repro_torch::flash_attention``
-and ``repro_torch::flash_attention_bwd``, in %."""
+and ``repro_torch::flash_attention_bwd``, in %.  The layers that run
+attention, and their heads, are the record's family's."""
 
+from portbench import families
 from portbench import yardstick as y
 
 OPS = ("repro_torch::flash_attention", "repro_torch::flash_attention_bwd")
@@ -17,8 +19,9 @@ def read(record):
     if not dev:
         return None
     s, rows, seq = record["spec"], record["rows"], record["seq"]
-    flops = 3.0 * y.attention_flops(s, seq) * rows * s.layers * record["trace_steps"]
-    nbytes = 3.0 * y.attention_bytes(s, seq) * rows * s.layers * record["trace_steps"]
+    layers = families.named(record["family"]).attention_layers(s)
+    flops = 3.0 * y.attention_flops(s, seq) * rows * layers * record["trace_steps"]
+    nbytes = 3.0 * y.attention_bytes(s, seq) * rows * layers * record["trace_steps"]
     bound = max(flops / y.PEAK_FLOPS[s.dtype], nbytes / y.PEAK_BYTES)
     record.setdefault("bases", []).append(
         f"flash_attention_roofline: {flops!r} operations, bound {bound!r} s over device "

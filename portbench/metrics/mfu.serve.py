@@ -2,21 +2,22 @@
 the window's work would fill: for each prefill and each decode step the
 larger of its counted operations over 989 TFLOP/s and its counted bytes
 (weights, cache positions attended, K/V written) over 3.35 TB/s, summed,
-over the window's seconds, in %."""
+over the window's seconds, in %.  The counts are the record's family's."""
 
+from portbench import families
 from portbench import yardstick as y
 
 
 def read(record):
-    s = record["spec"]
+    s, fam = record["spec"], families.named(record["family"])
     counts = []
     for i in record["iterations"]:
         if i["phase"] != "window":
             continue
-        counts += [y.prefill_counts(s, n) for n in i["prefills"]]
+        counts += [fam.prefill_counts(s, n) for n in i["prefills"]]
         if i["active"]:
-            counts.append(y.decode_step_counts(s, i["active"], i["active_pos"], i["rows"],
-                                               i["all_pos"]))
+            counts.append(fam.decode_step_counts(s, i["active"], i["active_pos"], i["rows"],
+                                                 i["all_pos"]))
     if not counts:
         return None
     bound, secs = y.bound_s(counts), record["window"]["seconds"]

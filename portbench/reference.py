@@ -1,14 +1,18 @@
-"""The plain reference: a dense decoder in float32, written from the
-published description (Qwen3 / Mistral: pre-norm RMS norm, GQA with RoPE
-by half rotation, per-head q/k RMS norm where the configuration has it,
-SwiGLU, tied or untied head), and the same model's training step with
-AdamW.
+"""The plain reference: a model in float32, written from its published
+description, and the same model's training step with AdamW.
 
-It imports nothing of the program and calls none of its operations.  Its
-weights come from ``weights.draw_group`` (the same seeded tensors the
-program was given) and are cast to float32; TF32 is off while it runs.
-It works layer by layer over the sequences it checks, attention in blocks
-of query rows, so that it fits beside nothing else on the card.
+The blocks of a model are its family's (``families/<family>.py``: ``embed``,
+``block``, ``final_logits``), built from the operations here (``linear``,
+``rms``, ``rope``, ``causal_attention``); this module holds what every
+family shares: the teacher-forced check of served tokens, and the training
+step's loss, global norm clip and AdamW.
+
+It imports nothing of the program and calls none of its operations, and
+neither may a family's blocks.  Its weights come from
+``weights.draw_group`` (the same seeded tensors the program was given) and
+are cast to float32; TF32 is off while it runs.  It works layer by layer
+over the sequences it checks, attention in blocks of query rows, so that it
+fits beside nothing else on the card.
 
 ``quant="fp8"`` is the control: every matrix product's inputs rounded to
 float8 e4m3 (a scale per row of the activations and per column of the
@@ -24,11 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .weights import draw_group, groups, leaf_names
-from .yardstick import Spec
+from .weights import draw_group, leaf_names
 
-__all__ = ["strict_f32", "fp8_round", "block", "final_logits", "served_gaps",
-           "TrainReference", "warmup_cosine", "leaf_gaps"]
+__all__ = ["strict_f32", "fp8_round", "linear", "rms", "rope", "causal_attention",
+           "served_gaps", "TrainReference", "warmup_cosine", "leaf_gaps"]
 
 Weights = Dict[str, torch.Tensor]
 ATTN_ROWS = 1024        # query rows of one block of scores
@@ -60,7 +63,7 @@ def fp8_round(x: torch.Tensor, dim: int) -> torch.Tensor:
     return (x * scale).to(torch.float8_e4m3fn).to(x.dtype) / scale
 
 
-def _linear(x: torch.Tensor, w: torch.Tensor, quant: Optional[str]) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, quant: Optional[str]) -> torch.Tensor:
     if quant == "fp8":
         # forward in fp8, gradient straight through
         x = x + (fp8_round(x, -1) - x).detach()
@@ -68,11 +71,11 @@ def _linear(x: torch.Tensor, w: torch.Tensor, quant: Optional[str]) -> torch.Ten
     return x @ w
 
 
-def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps) * w
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
+def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     """x (B, T, heads, hd) at positions 0..T-1, rotated by halves."""
     T, hd = x.shape[1], x.shape[-1]
     half = hd // 2
@@ -83,7 +86,7 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Softmax(q k^T / sqrt(hd)) v over positions at or before each query,
     q (B, T, H, hd), k/v (B, T, K, hd); query head h reads KV head
     h // (H / K).  Scores in blocks of ``ATTN_ROWS`` query rows."""
@@ -103,40 +106,12 @@ def _causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     return torch.cat(outs, dim=2).transpose(1, 2)             # (B, T, H, hd)
 
 
-def block(s: Spec, W: Weights, i: int, h: torch.Tensor, quant: Optional[str] = None
-          ) -> torch.Tensor:
-    """Layer ``i`` on hidden states h (B, T, D)."""
-    p = f"blocks.{i}."
-    B, T, _ = h.shape
-    x = _rms(h, W[p + "norm1.w"], s.eps)
-    q = _linear(x, W[p + "attn.wq"], quant).view(B, T, s.heads, s.head_dim)
-    k = _linear(x, W[p + "attn.wk"], quant).view(B, T, s.kv_heads, s.head_dim)
-    v = _linear(x, W[p + "attn.wv"], quant).view(B, T, s.kv_heads, s.head_dim)
-    if s.qk_norm:
-        q = _rms(q, W[p + "attn.q_norm"], s.eps)
-        k = _rms(k, W[p + "attn.k_norm"], s.eps)
-    o = _causal_attention(_rope(q, s.theta), _rope(k, s.theta), v)
-    h = h + _linear(o.reshape(B, T, -1), W[p + "attn.wo"], quant)
-    x = _rms(h, W[p + "norm2.w"], s.eps)
-    g = F.silu(_linear(x, W[p + "mlp.w_gate"], quant)) * _linear(x, W[p + "mlp.w_up"], quant)
-    return h + _linear(g, W[p + "mlp.w_down"], quant)
-
-
-def head_weight(s: Spec, W: Weights) -> torch.Tensor:
-    return W["embed.table"].T if s.tied else W["lm_head.w"]
-
-
-def final_logits(s: Spec, W: Weights, h: torch.Tensor, quant: Optional[str] = None
-                 ) -> torch.Tensor:
-    return _linear(_rms(h, W["final_norm.w"], s.eps), head_weight(s, W), quant)
-
-
 def _f32(tensors: Weights) -> Weights:
     return {n: t.float() for n, t in tensors.items()}
 
 
 @torch.no_grad()
-def served_gaps(s: Spec, seed: int, seqs: Sequence[Tuple[List[int], List[int]]], device,
+def served_gaps(family, s, seed: int, seqs: Sequence[Tuple[List[int], List[int]]], device,
                 control: bool = False) -> Dict[str, object]:
     """Teacher-forced check of served requests, each (prompt, served tokens):
     the reference runs once over prompt + served[:-1], layer by layer, and
@@ -145,26 +120,27 @@ def served_gaps(s: Spec, seed: int, seqs: Sequence[Tuple[List[int], List[int]]],
     number of tokens, and with ``control`` the widest gap of the token that
     the fp8 control puts first at each position."""
     with strict_f32():
-        top = _f32(draw_group(s, seed, -1, device))
+        top_group, *blocks = family.groups(s)
+        top = _f32(draw_group(family, s, seed, top_group, device))
         toks = [torch.tensor(p + o[:-1], device=device, dtype=torch.long) for p, o in seqs]
-        hs = [top["embed.table"][t][None] for t in toks]
+        hs = [family.embed(s, top, t)[None] for t in toks]
         cs = [h.clone() for h in hs] if control else []
-        for i in groups(s)[1:]:
-            W = _f32(draw_group(s, seed, i, device))
-            hs = [block(s, W, i, h) for h in hs]
-            cs = [block(s, W, i, h, "fp8") for h in cs]
+        for i in blocks:
+            W = _f32(draw_group(family, s, seed, i, device))
+            hs = [family.block(s, W, i, h) for h in hs]
+            cs = [family.block(s, W, i, h, "fp8") for h in cs]
             del W
         widest, ctrl_widest, n = 0.0, 0.0, 0
         for j, (prompt, out) in enumerate(seqs):
             at = slice(len(prompt) - 1, len(prompt) - 1 + len(out))
-            ref = final_logits(s, top, hs[j][0, at])
+            ref = family.final_logits(s, top, hs[j][0, at])
             best = ref.max(dim=-1).values
             served = torch.tensor(out, device=device, dtype=torch.long)
             gap = best - ref.gather(1, served[:, None])[:, 0]
             widest = max(widest, float(gap.max()))
             n += len(out)
             if control:
-                pick = final_logits(s, top, cs[j][0, at], "fp8").argmax(dim=-1)
+                pick = family.final_logits(s, top, cs[j][0, at], "fp8").argmax(dim=-1)
                 cgap = best - ref.gather(1, pick[:, None])[:, 0]
                 ctrl_widest = max(ctrl_widest, float(cgap.max()))
     result = {"served_logit_gap": widest, "tokens": n}
@@ -195,11 +171,11 @@ class TrainReference:
     the backward pass (``checkpoint``) so that the activations of a long
     batch fit."""
 
-    def __init__(self, s: Spec, seed: int, opt: Dict, device, quant: Optional[str] = None):
-        self.s, self.opt, self.quant = s, opt, quant
+    def __init__(self, family, s, seed: int, opt: Dict, device, quant: Optional[str] = None):
+        self.family, self.s, self.opt, self.quant = family, s, opt, quant
         self.params: Weights = {}
-        for g in groups(s):
-            self.params.update(_f32(draw_group(s, seed, g, device)))
+        for g in family.groups(s):
+            self.params.update(_f32(draw_group(family, s, seed, g, device)))
         for t in self.params.values():
             t.requires_grad_(True)
         self.m = {n: torch.zeros_like(t) for n, t in self.params.items()}
@@ -207,9 +183,8 @@ class TrainReference:
         self.step_no = 0
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        s, W, quant = self.s, self.params, self.quant
-        h = W["embed.table"][tokens.long()]
-        for i in range(s.layers):
+        h = self.family.embed(self.s, self.params, tokens.long())
+        for i in self.family.groups(self.s)[1:]:
             h = checkpoint(self._layer, h, i, use_reentrant=False)
         B, T, _ = h.shape
         total = torch.zeros((), device=h.device)
@@ -219,10 +194,10 @@ class TrainReference:
         return total / (B * T)
 
     def _layer(self, h: torch.Tensor, i: int) -> torch.Tensor:
-        return block(self.s, self.params, i, h, self.quant)
+        return self.family.block(self.s, self.params, i, h, self.quant)
 
     def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        logits = final_logits(self.s, self.params, h, self.quant)
+        logits = self.family.final_logits(self.s, self.params, h, self.quant)
         return F.cross_entropy(logits.flatten(0, 1), labels.long().flatten(), reduction="sum")
 
     def step(self, tokens: torch.Tensor, labels: torch.Tensor
@@ -258,9 +233,9 @@ class TrainReference:
     def change_norms(self, seed: int, device) -> Dict[str, float]:
         """Each leaf's norm of its change from the seeded start."""
         out = {}
-        for g in groups(self.s):
-            start = draw_group(self.s, seed, g, device)
-            for n in leaf_names(self.s, g):
+        for g in self.family.groups(self.s):
+            start = draw_group(self.family, self.s, seed, g, device)
+            for n in leaf_names(self.family, self.s, g):
                 out[n] = float(torch.linalg.vector_norm(self.params[n] - start[n].float()))
         return out
 

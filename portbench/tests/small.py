@@ -1,35 +1,33 @@
-"""A small configuration and small mixes, for driving whole runs of the
-benchmark on the CPU (the port's plain PyTorch path)."""
+"""Small configurations, mixes and limits, for driving whole runs of the
+benchmark on the CPU (the port's plain PyTorch path).
+
+A configuration's small size is its family's (``small``); a cell's limits
+at that size are ``tests/limits/<cell>.json``, in the form of the cell's
+own limits file, each saying what readings it was set from."""
 
 from __future__ import annotations
 
 import copy
+from pathlib import Path
 
-from portbench import harness
+from portbench import families, harness
 
 SEED = 3_000_000_019      # above 2**31: a seed may need more than 32 signed bits
-
-# Limits at this size, set as the cells' are, from CPU readings over seeds
-# SEED + 0..5: the port's widest served gap 0-0.0142 (mistral shape), the
-# fp8 control's 0.153-0.623;
-# training's gaps 0.00010-0.00034 (step 1's loss), 0.0015-0.0033
-# (gradient), 0.050-0.075 (change) against the control's 0.00006-0.0022,
-# 0.0156-0.0397 and 0.009-0.014, and the faults': half the batch 0.0045-0.0126
-# (step 1's loss) and 0.15-0.21 (gradient), a state unchanged 1 (gradient,
-# change), a leaf moved twice 1.04 (change).  The worst step's loss gap is
-# printed and not compared (None), as in the cell.
-SMALL_LIMITS = {
-    "mistral-large-123b.l11.serve.chat": {"served_logit_gap": 0.05},
-    "qwen3-1.7b.train.s4096": {"loss_gap_step1": 0.0015, "grad_gap_median": None,
-                               "grad_gap": 0.007, "change_gap": 0.3, "loss_gap": None},
-}
+LIMITS = Path(__file__).resolve().parent / "limits"
 
 
 def small_config(name: str = "qwen3-1.7b") -> dict:
     cfg = harness.load_json(harness.HERE / "configs" / f"{name}.json")
-    cfg.update(hidden_size=64, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
-               intermediate_size=128, vocab_size=256, num_hidden_layers=2, eos_token_id=255)
-    return cfg
+    return families.of(cfg).small(cfg)
+
+
+def small_limits(cell: str) -> dict:
+    """The cell's limits at the small size; a missing file is named."""
+    path = LIMITS / f"{cell}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"the cell {cell} has no limits at the CPU tests' size: "
+                                f"{path} is missing")
+    return harness.read_limits(path)
 
 
 def small_traffic(mix: str) -> dict:

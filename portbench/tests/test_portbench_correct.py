@@ -1,5 +1,6 @@
-"""Whole runs on the CPU at a small size (limits of this size in
-``small.SMALL_LIMITS``), with the look for a card skipped:
+"""Whole runs on the CPU at a small size (each configuration's family's
+``small``; limits of this size in ``tests/limits/<cell>.json``), with the
+look for a card skipped:
 a sound run is ``correct``; with the timed path broken underneath (a step
 that leaves its state unchanged, half of the batch left out, a token or an
 answer altered where it is produced) it is not; and the fp8 control's
@@ -28,8 +29,15 @@ def _run(cell_name, fault=None, control=False):
                            traffic=traffic)
     info = {"platform": "cpu", "kind": "cpu", "count": 1}
     out, notes = harness.result_line(BENCH, cell, rec, False, info,
-                                     small.SMALL_LIMITS[cell_name])
+                                     small.small_limits(cell_name))
     return rec, out, notes
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_has_small_limits(cell):
+    path = small.LIMITS / f"{cell}.json"
+    assert path.is_file(), f"{path} is missing: the cell's limits at the CPU tests' size"
+    assert small.small_limits(cell)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -39,7 +47,7 @@ def test_sound_run_is_correct_and_control_fails(cell):
     assert list(out)[-1] == "checks"
     assert notes[-len(out["checks"]):] == [
         f"check {n} = {c['value']!r} limit {c['limit']!r}" for n, c in out["checks"].items()]
-    ok, _ = harness.judge(rec["control"], small.SMALL_LIMITS[cell])
+    ok, _ = harness.judge(rec["control"], small.small_limits(cell))
     assert not ok, rec["control"]
 
 

@@ -1,34 +1,35 @@
-"""The yardstick's counts against hand counts at both configurations'
-shapes."""
+"""The dense family's and the yardstick's counts against hand counts at
+both configurations' shapes."""
 
 import math
 
 import pytest
 
-from portbench import harness, weights, yardstick
+from portbench import harness, yardstick
+from portbench.families import dense
 
-QWEN = yardstick.spec_of(harness.load_json(harness.HERE / "configs" / "qwen3-1.7b.json"))
-MISTRAL = yardstick.spec_of(
+QWEN = dense.spec_of(harness.load_json(harness.HERE / "configs" / "qwen3-1.7b.json"))
+MISTRAL = dense.spec_of(
     harness.load_json(harness.HERE / "configs" / "mistral-large-123b.l11.json"))
 
 
 def test_parameters():
     # qwen3-1.7b: 28 x (attention 12,582,912 + MLP 37,748,736 + norms 4,352)
     # + a tied table of 151,936 x 2,048 + the final norm
-    assert yardstick.param_count(QWEN) == 28 * 50_336_000 + 311_164_928 + 2048 == 1_720_574_976
+    assert dense.param_count(QWEN) == 28 * 50_336_000 + 311_164_928 + 2048 == 1_720_574_976
     # mistral-large, 11 full-width layers of 1,384,144,896, an embedding and
     # an untied head of 32,768 x 12,288 each
-    assert yardstick.layer_params(MISTRAL) == 1_384_144_896
-    assert yardstick.param_count(MISTRAL) == 16_030_912_512
+    assert dense.layer_params(MISTRAL) == 1_384_144_896
+    assert dense.param_count(MISTRAL) == 16_030_912_512
     for s in (QWEN, MISTRAL):
-        leaves = weights.top_leaves(s) + weights.layer_leaves(s) * s.layers
-        assert sum(math.prod(shape) for _, shape in leaves) == yardstick.param_count(s)
+        leaves = [leaf for g in dense.groups(s) for leaf in dense.leaves(s, g)]
+        assert sum(math.prod(shape) for _, shape, _ in leaves) == dense.param_count(s)
 
 
 def test_training_flops():
     # 6 N D + 12 L B H hd S^2 / 2 at 2 x 4,096: 96.1 TFLOP
     want = 6 * 1_720_574_976 * 8192 + 12 * 28 * 2 * 16 * 128 * 4096 ** 2 / 2
-    assert yardstick.model_flops_train(QWEN, 2, 4096) == want
+    assert dense.train_flops(QWEN, 2, 4096) == want
     assert want == pytest.approx(96.1e12, rel=1e-3)
 
 
@@ -45,13 +46,13 @@ def test_cache_bytes():
 
 
 def test_step_counts():
-    d = yardstick.decode_step_counts(QWEN, active=3, active_positions=3000, rows=4,
-                                    all_positions=3001)
+    d = dense.decode_step_counts(QWEN, active=3, active_positions=3000, rows=4,
+                                 all_positions=3001)
     matmul = 28 * (2048 * 32 * 128 + 16 * 128 * 2048 + 3 * 2048 * 6144) + 151_936 * 2048
     assert d["flops"] == 2 * matmul * 3 + 4 * 28 * 16 * 128 * 3000
     assert d["bytes"] == (1_720_574_976 * 2 + 2 * 4 * 28 * 8 * 128 * 2
                           + 28 * (2 * 3001 * 8 * 128 * 2 + 2 * 4 * 16 * 128 * 2))
-    p = yardstick.prefill_counts(MISTRAL, 300)
+    p = dense.prefill_counts(MISTRAL, 300)
     layer_mm = 12288 * (96 + 16) * 128 + 96 * 128 * 12288 + 3 * 12288 * 28672
     assert p["flops"] == (2 * 11 * layer_mm * 300 + 2 * 32768 * 12288
                           + 11 * 4 * (300 * 301 / 2) * 128 * 96)

@@ -32,11 +32,16 @@ def test_sources_import_no_jax():
 
 
 def test_reference_imports_nothing_of_the_program():
+    """The shared reference imports nothing of the program, and a family
+    module (whose blocks the reference runs) imports it only inside the
+    functions that build or patch the port."""
     for name in ("reference.py", "yardstick.py", "weights.py", "gen.py"):
         tops = {m.split(".")[0] for m in _imports(harness.HERE / name)}
         assert "repro_torch" not in tops, name
     code = ("import sys; import portbench.reference, portbench.yardstick, portbench.weights, "
-            "portbench.gen; print(sorted({m.split('.')[0] for m in sys.modules} & "
+            "portbench.gen; from portbench import families; "
+            "[families.named(f) for f in families.present()]; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=harness.ROOT, capture_output=True,
                          text=True, check=True)

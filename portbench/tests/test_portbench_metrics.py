@@ -4,8 +4,9 @@ a stall planted in a synthetic timeline moves the rate and the tail."""
 import pytest
 
 from portbench import harness, yardstick
+from portbench.families import dense
 
-S = yardstick.spec_of(harness.load_json(harness.HERE / "configs" / "qwen3-1.7b.json"))
+S = dense.spec_of(harness.load_json(harness.HERE / "configs" / "qwen3-1.7b.json"))
 
 
 def _timeline(stall_at=None, steps=400, step_s=0.05, slots=8):
@@ -24,7 +25,7 @@ def _timeline(stall_at=None, steps=400, step_s=0.05, slots=8):
         iterations.append({"t": t, "phase": "window", "prefills": prefills, "active": slots,
                            "active_pos": slots * 1500, "rows": slots,
                            "all_pos": slots * 1500})
-    return {"spec": S, "window": {"open": 0.0, "close": t, "seconds": t},
+    return {"spec": S, "family": "dense", "window": {"open": 0.0, "close": t, "seconds": t},
             "iterations": iterations, "gaps": {"window": gaps}, "requests": requests,
             "engine": {"prefill_s": 1.0, "decode_s": 10.0, "decode_steps": steps}}
 
